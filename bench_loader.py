@@ -32,12 +32,12 @@ def bench_full_feed(n_images=48, size=(1600, 1200), out=416, batch=32,
     """Full ImageLabelDataset feed from disk JPEGs, imgs/sec through the
     DataLoader (host half of the hybrid augmentation split)."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from mit_driverless_cv_traininginfra_tpu.data.loader import DataLoader
-    from mit_driverless_cv_traininginfra_tpu.data.yolo_csv import (
+    from mit_driverless_cv_traininginfra.data.loader import DataLoader
+    from mit_driverless_cv_traininginfra.data.yolo_csv import (
         YoloCsvRow,
         write_yolo_csv,
     )
-    from mit_driverless_cv_traininginfra_tpu.data.yolo_dataset import (
+    from mit_driverless_cv_traininginfra.data.yolo_dataset import (
         ImageLabelDataset,
     )
 
@@ -84,15 +84,11 @@ def bench_full_feed(n_images=48, size=(1600, 1200), out=416, batch=32,
 def main_full(argv):
     device_aug = "--device-aug" in argv
     rate, n_samples = bench_full_feed(device_aug=device_aug)
-    # train-step demand measured by tools/bench_train.py on v5e (bf16)
-    demand = {"B=32": 368.1, "B=64": 411.5, "B=128": 508.8}
     print(json.dumps({
         "metric": "host_full_feed_imgs_per_s",
         "mode": "device_aug" if device_aug else "host_affine",
         "value": round(rate, 1),
         "n_samples_per_epoch": n_samples,
-        "train_step_demand_imgs_per_s_v5e_bf16": demand,
-        "feeds_chip": {k: rate >= v for k, v in demand.items()},
     }))
     return 0
 
@@ -101,7 +97,7 @@ def main(n_images=64, size=(1024, 768), out=(416, 416)):
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import native
 
-    from mit_driverless_cv_traininginfra_tpu.data.decode import open_rgb
+    from mit_driverless_cv_traininginfra.data.decode import open_rgb
 
     rng = np.random.default_rng(0)
     blobs = []

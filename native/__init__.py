@@ -1,7 +1,7 @@
 """ctypes bindings for the native input-pipeline core (``cvloader.cc``).
 
-Builds ``libcvloader.so`` on first use with g++ (cached next to the
-source; rebuilt when the source is newer). Python↔C++ crossing is via the
+Builds ``build/libcvloader.so`` from the source on first use with g++
+(the build directory is not committed; rebuilt when the source is newer). Python↔C++ crossing is via the
 plain C ABI — no pybind11 in this image.
 """
 
@@ -16,7 +16,7 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "cvloader.cc")
-_SO = os.path.join(_DIR, "libcvloader.so")
+_SO = os.path.join(_DIR, "build", "libcvloader.so")
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -24,9 +24,14 @@ _lib: Optional[ctypes.CDLL] = None
 def _build() -> str:
     if (not os.path.exists(_SO)
             or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
-        cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-               _SRC, "-o", _SO, "-ljpeg", "-lpng", "-lpthread"]
+        os.makedirs(os.path.dirname(_SO), exist_ok=True)
+        # build under a private name, then rename: concurrent first users
+        # (test workers, loader processes) never load a half-written file
+        tmp = f"{_SO}.{os.getpid()}.tmp"
+        cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
+               _SRC, "-o", tmp, "-ljpeg", "-lpng", "-lpthread"]
         subprocess.check_call(cmd)
+        os.replace(tmp, _SO)
     return _SO
 
 

@@ -2,7 +2,7 @@
 // buffers.
 //
 // The reference feeds training from Python DataLoader workers doing
-// PIL/cv2 work per sample (utils/datasets.py). Feeding a TPU at
+// PIL/cv2 work per sample (utils/datasets.py). Feeding a GPU at
 // thousands of 416² frames/sec needs the host path out of Python: this
 // library decodes JPEG/PNG (libjpeg/libpng), letterboxes, extracts
 // tile-and-scale patches and applies bilinear affine warps on uint8

@@ -2,7 +2,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mit_driverless_cv_traininginfra_tpu.ops import (
+from mit_driverless_cv_traininginfra.ops import (
     add_class_dimension_to_labels,
     add_padding_on_each_side,
     bbox_iou,

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from mit_driverless_cv_traininginfra_tpu.infer.capacity import (
+from mit_driverless_cv_traininginfra.infer.capacity import (
     AdaptiveCapacity,
 )
 

@@ -2,12 +2,12 @@ import os
 
 import pytest
 
-from mit_driverless_cv_traininginfra_tpu.config import (
+from mit_driverless_cv_traininginfra.config import (
     VANILLA_ANCHORS,
     load_network_spec,
     parse_model_config,
 )
-from mit_driverless_cv_traininginfra_tpu.config.darknet_cfg import (
+from mit_driverless_cv_traininginfra.config.darknet_cfg import (
     ConvBlock,
     MaxPoolBlock,
     RouteBlock,

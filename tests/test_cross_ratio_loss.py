@@ -2,7 +2,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mit_driverless_cv_traininginfra_tpu.models.cross_ratio_loss import cross_ratio_loss
+from mit_driverless_cv_traininginfra.models.cross_ratio_loss import cross_ratio_loss
 
 
 def _rand(shape, seed):

@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mit_driverless_cv_traininginfra_tpu.config import load_network_spec
-from mit_driverless_cv_traininginfra_tpu.models.darknet import (
+from mit_driverless_cv_traininginfra.config import load_network_spec
+from mit_driverless_cv_traininginfra.models.darknet import (
     _maxpool,
     _upsample,
     decode_head,

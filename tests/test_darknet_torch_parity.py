@@ -9,8 +9,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mit_driverless_cv_traininginfra_tpu.config import load_network_spec
-from mit_driverless_cv_traininginfra_tpu.config.darknet_cfg import (
+from mit_driverless_cv_traininginfra.config import load_network_spec
+from mit_driverless_cv_traininginfra.config.darknet_cfg import (
     ConvBlock,
     MaxPoolBlock,
     RouteBlock,
@@ -18,7 +18,7 @@ from mit_driverless_cv_traininginfra_tpu.config.darknet_cfg import (
     UpsampleBlock,
     YoloBlock,
 )
-from mit_driverless_cv_traininginfra_tpu.models.darknet import (
+from mit_driverless_cv_traininginfra.models.darknet import (
     decode_head,
     forward_features,
     init_params,

@@ -5,23 +5,23 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from mit_driverless_cv_traininginfra_tpu.data.kmeans_anchors import (
+from mit_driverless_cv_traininginfra.data.kmeans_anchors import (
     compute_scale_factors,
     generate_dataset_csvs,
     kmeans_boxes,
 )
-from mit_driverless_cv_traininginfra_tpu.data.loader import DataLoader
-from mit_driverless_cv_traininginfra_tpu.data.rektnet_data import (
+from mit_driverless_cv_traininginfra.data.loader import DataLoader
+from mit_driverless_cv_traininginfra.data.rektnet_data import (
     ConeDataset,
     RektNetLoader,
     load_train_csv_dataset,
 )
-from mit_driverless_cv_traininginfra_tpu.data.yolo_csv import (
+from mit_driverless_cv_traininginfra.data.yolo_csv import (
     YoloCsvRow,
     read_yolo_csv,
     write_yolo_csv,
 )
-from mit_driverless_cv_traininginfra_tpu.data.yolo_dataset import ImageLabelDataset
+from mit_driverless_cv_traininginfra.data.yolo_dataset import ImageLabelDataset
 
 
 @pytest.fixture
@@ -247,7 +247,7 @@ def test_generate_csvs_no_empty_images_keeps_train_split(yolo_dataset_dir, tmp_p
 
 def test_prefetch_to_device_propagates_errors():
     """A failing dataset must crash the epoch, not silently truncate it."""
-    from mit_driverless_cv_traininginfra_tpu.data.loader import prefetch_to_device
+    from mit_driverless_cv_traininginfra.data.loader import prefetch_to_device
 
     def bad_iter():
         yield ["u"], np.zeros((2, 4, 4, 3), np.float32), np.zeros((2, 1, 5), np.float32)

@@ -2,8 +2,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from mit_driverless_cv_traininginfra_tpu.data.augment import affine_labels
-from mit_driverless_cv_traininginfra_tpu.ops.device_aug import (
+from mit_driverless_cv_traininginfra.data.augment import affine_labels
+from mit_driverless_cv_traininginfra.ops.device_aug import (
     _affine_labels_batch,
     _affine_matrices,
     _warp_bilinear,
@@ -32,7 +32,7 @@ def test_affine_labels_batch_matches_host_rewarp():
     """The batched jax label rewarp must agree with the HOST implementation
     (data.augment.affine_labels — the reference-parity rewarp) when both
     use the same affine parameters."""
-    import mit_driverless_cv_traininginfra_tpu.data.augment as A
+    import mit_driverless_cv_traininginfra.data.augment as A
 
     rng = np.random.default_rng(1)
     B, T = 3, 4

@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mit_driverless_cv_traininginfra_tpu.data.device_pool import DevicePool
-from mit_driverless_cv_traininginfra_tpu.parallel.mesh import make_mesh
+from mit_driverless_cv_traininginfra.data.device_pool import DevicePool
+from mit_driverless_cv_traininginfra.parallel.mesh import make_mesh
 
 
 class _FakeDataset:
@@ -82,11 +82,11 @@ def test_pool_feeds_sharded_train_step():
     """Pool batches must drive the DP train step over the virtual mesh."""
     import os
 
-    from mit_driverless_cv_traininginfra_tpu.config import load_network_spec
-    from mit_driverless_cv_traininginfra_tpu.models.darknet import init_params
-    from mit_driverless_cv_traininginfra_tpu.parallel.mesh import replicate
-    from mit_driverless_cv_traininginfra_tpu.train.optim import make_optimizer
-    from mit_driverless_cv_traininginfra_tpu.train.steps import (
+    from mit_driverless_cv_traininginfra.config import load_network_spec
+    from mit_driverless_cv_traininginfra.models.darknet import init_params
+    from mit_driverless_cv_traininginfra.parallel.mesh import replicate
+    from mit_driverless_cv_traininginfra.train.optim import make_optimizer
+    from mit_driverless_cv_traininginfra.train.steps import (
         init_train_state,
         yolo_train_step,
     )

@@ -8,9 +8,9 @@ import numpy as np
 import jax
 import pytest
 
-from mit_driverless_cv_traininginfra_tpu.config import load_network_spec
-from mit_driverless_cv_traininginfra_tpu.config.cfg_factory import yolov3_cfg
-from mit_driverless_cv_traininginfra_tpu.models.darknet import (
+from mit_driverless_cv_traininginfra.config import load_network_spec
+from mit_driverless_cv_traininginfra.config.cfg_factory import yolov3_cfg
+from mit_driverless_cv_traininginfra.models.darknet import (
     init_params,
     load_darknet_weights,
     save_darknet_weights,

@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from mit_driverless_cv_traininginfra_tpu.ops.heatmap import (
+from mit_driverless_cv_traininginfra.ops.heatmap import (
     gaussian_heatmaps,
     get_scale,
     keypoint_distance_summary,

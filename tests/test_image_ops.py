@@ -2,7 +2,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mit_driverless_cv_traininginfra_tpu.ops.image import (
+from mit_driverless_cv_traininginfra.ops.image import (
     GREY,
     letterbox,
     pad_to,

@@ -9,16 +9,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mit_driverless_cv_traininginfra_tpu.config import load_network_spec
-from mit_driverless_cv_traininginfra_tpu.models import rektnet
-from mit_driverless_cv_traininginfra_tpu.models.darknet import detections, init_params
-from mit_driverless_cv_traininginfra_tpu.ops.heatmap import gaussian_heatmaps
-from mit_driverless_cv_traininginfra_tpu.ops.metrics import (
+from mit_driverless_cv_traininginfra.config import load_network_spec
+from mit_driverless_cv_traininginfra.models import rektnet
+from mit_driverless_cv_traininginfra.models.darknet import detections, init_params
+from mit_driverless_cv_traininginfra.ops.heatmap import gaussian_heatmaps
+from mit_driverless_cv_traininginfra.ops.metrics import (
     evaluate_image_batch,
     summarize,
 )
-from mit_driverless_cv_traininginfra_tpu.train.optim import make_optimizer
-from mit_driverless_cv_traininginfra_tpu.train.steps import (
+from mit_driverless_cv_traininginfra.train.optim import make_optimizer
+from mit_driverless_cv_traininginfra.train.steps import (
     init_train_state,
     rektnet_train_step,
     yolo_train_step,

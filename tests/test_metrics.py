@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from mit_driverless_cv_traininginfra_tpu.ops.metrics import (
+from mit_driverless_cv_traininginfra.ops.metrics import (
     average_precision,
     compute_ap,
     evaluate_image_batch,

@@ -8,14 +8,14 @@ import jax.numpy as jnp
 import numpy as np
 import os
 
-from mit_driverless_cv_traininginfra_tpu.config import load_network_spec
-from mit_driverless_cv_traininginfra_tpu.infer.microbatch import MicroBatcher
-from mit_driverless_cv_traininginfra_tpu.infer.pipeline import (
+from mit_driverless_cv_traininginfra.config import load_network_spec
+from mit_driverless_cv_traininginfra.infer.microbatch import MicroBatcher
+from mit_driverless_cv_traininginfra.infer.pipeline import (
     PipelineOut,
     two_stage_pipeline,
 )
-from mit_driverless_cv_traininginfra_tpu.models import rektnet
-from mit_driverless_cv_traininginfra_tpu.models.darknet import init_params
+from mit_driverless_cv_traininginfra.models import rektnet
+from mit_driverless_cv_traininginfra.models.darknet import init_params
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "tiny_test.cfg")
 

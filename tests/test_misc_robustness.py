@@ -7,13 +7,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from mit_driverless_cv_traininginfra_tpu.config import load_network_spec
-from mit_driverless_cv_traininginfra_tpu.models.darknet import (
+from mit_driverless_cv_traininginfra.config import load_network_spec
+from mit_driverless_cv_traininginfra.models.darknet import (
     detections,
     init_params,
 )
-from mit_driverless_cv_traininginfra_tpu.train.optim import make_optimizer
-from mit_driverless_cv_traininginfra_tpu.train.steps import (
+from mit_driverless_cv_traininginfra.train.optim import make_optimizer
+from mit_driverless_cv_traininginfra.train.steps import (
     init_train_state,
     yolo_train_step,
 )
@@ -62,11 +62,11 @@ def test_grayscale_model_path(tmp_path):
 def test_grayscale_dataset_emits_single_channel(tmp_path):
     from PIL import Image
 
-    from mit_driverless_cv_traininginfra_tpu.data.yolo_csv import (
+    from mit_driverless_cv_traininginfra.data.yolo_csv import (
         YoloCsvRow,
         write_yolo_csv,
     )
-    from mit_driverless_cv_traininginfra_tpu.data.yolo_dataset import (
+    from mit_driverless_cv_traininginfra.data.yolo_dataset import (
         ImageLabelDataset,
     )
 
@@ -87,8 +87,8 @@ def test_grayscale_dataset_emits_single_channel(tmp_path):
 def test_conv_graph_flops_matches_published_yolov3():
     """Analytic FLOP accounting (bench reporting) pinned to darknet's own
     published figure: YOLOv3 at 416x416 = 65.86 BFLOPs."""
-    from mit_driverless_cv_traininginfra_tpu.config.flagship import flagship_spec
-    from mit_driverless_cv_traininginfra_tpu.utils.profiling import (
+    from mit_driverless_cv_traininginfra.config.flagship import flagship_spec
+    from mit_driverless_cv_traininginfra.utils.profiling import (
         conv_graph_flops,
         rektnet_flops,
     )

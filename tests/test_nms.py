@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from mit_driverless_cv_traininginfra_tpu.ops.nms import batched_nms, nms
+from mit_driverless_cv_traininginfra.ops.nms import batched_nms, nms
 
 
 def _ref_nms(boxes, scores, overlap=0.5, top_k=200):

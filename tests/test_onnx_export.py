@@ -4,12 +4,12 @@ import numpy as np
 import jax
 import pytest
 
-from mit_driverless_cv_traininginfra_tpu.config import load_network_spec
-from mit_driverless_cv_traininginfra_tpu.export import onnx_writer as ox
-from mit_driverless_cv_traininginfra_tpu.export.pt_to_onnx import export_rektnet_onnx
-from mit_driverless_cv_traininginfra_tpu.export.yolo2onnx import export_yolo_onnx
-from mit_driverless_cv_traininginfra_tpu.models import rektnet
-from mit_driverless_cv_traininginfra_tpu.models.darknet import init_params
+from mit_driverless_cv_traininginfra.config import load_network_spec
+from mit_driverless_cv_traininginfra.export import onnx_writer as ox
+from mit_driverless_cv_traininginfra.export.pt_to_onnx import export_rektnet_onnx
+from mit_driverless_cv_traininginfra.export.yolo2onnx import export_yolo_onnx
+from mit_driverless_cv_traininginfra.models import rektnet
+from mit_driverless_cv_traininginfra.models.darknet import init_params
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "tiny_test.cfg")
 
@@ -90,11 +90,11 @@ def test_rektnet_onnx_export_structure(tmp_path):
 # fails here.
 # ---------------------------------------------------------------------------
 
-from mit_driverless_cv_traininginfra_tpu.export.onnx_eval import run_model
+from mit_driverless_cv_traininginfra.export.onnx_eval import run_model
 
 
 def test_yolo_onnx_numeric_matches_jax_forward(tmp_path):
-    from mit_driverless_cv_traininginfra_tpu.models.darknet import (
+    from mit_driverless_cv_traininginfra.models.darknet import (
         forward_features,
     )
 
@@ -121,7 +121,7 @@ def test_yolo_onnx_numeric_matches_jax_forward(tmp_path):
 def test_yolo_onnx_numeric_catches_transposed_weight(tmp_path):
     """The numeric check must actually discriminate: corrupt one conv
     initializer with a spatial transpose and require a mismatch."""
-    from mit_driverless_cv_traininginfra_tpu.models.darknet import (
+    from mit_driverless_cv_traininginfra.models.darknet import (
         forward_features,
     )
 

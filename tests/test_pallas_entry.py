@@ -1,8 +1,7 @@
-"""Fused entry-block serving path (ops/pallas_entry): correctness on CPU.
+"""int8 serving entry path (ops/entry): correctness on CPU.
 
-The kernel runs in Pallas interpret mode here; the XLA twin
-``entry_reference_int8`` reproduces models.quantize semantics op-for-op.
-TPU perf evidence lives in tools/bench_entry_fused.py / PERF.md.
+The 4×4/s2 conv1 is pinned to the packed-stem conv1, and the whole entry
+path to the plain int8 graph of models.quantize.
 """
 
 import os
@@ -12,25 +11,23 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mit_driverless_cv_traininginfra_tpu.config import load_network_spec
-from mit_driverless_cv_traininginfra_tpu.models.darknet import (
+from mit_driverless_cv_traininginfra.config import load_network_spec
+from mit_driverless_cv_traininginfra.models.darknet import (
     fold_bn,
     init_params,
 )
-from mit_driverless_cv_traininginfra_tpu.models.quantize import (
+from mit_driverless_cv_traininginfra.models.quantize import (
     calibrate,
     forward_features_int8,
     quantize_packed_stem,
     quantize_params,
 )
-from mit_driverless_cv_traininginfra_tpu.models.stem_opt import (
+from mit_driverless_cv_traininginfra.models.stem_opt import (
     build_packed_stem,
 )
-from mit_driverless_cv_traininginfra_tpu.ops.pallas_entry import (
+from mit_driverless_cv_traininginfra.ops.entry import (
     conv1_4x4_q8,
     entry_block_applicable,
-    entry_forward_int8,
-    entry_reference_int8,
     quantize_entry,
 )
 
@@ -124,7 +121,7 @@ AMAX = {"0": 1.0, "1": 3.0, "2": 2.0, "3": 2.5, "5": 4.0}
 
 
 def test_applicability():
-    from mit_driverless_cv_traininginfra_tpu.config.flagship import (
+    from mit_driverless_cv_traininginfra.config.flagship import (
         flagship_spec,
     )
 
@@ -138,8 +135,8 @@ def test_conv1_4x4_matches_packed_stem():
     """The 4×4/s2 reformulation is exactly the packed conv1 (stem_opt):
     same int8 hq, because each output channel holds the same 27 weights
     (same per-channel absmax ⇒ same quant scales)."""
-    from mit_driverless_cv_traininginfra_tpu.models.quantize import _qconv
-    from mit_driverless_cv_traininginfra_tpu.models.stem_opt import pack_input
+    from mit_driverless_cv_traininginfra.models.quantize import _qconv
+    from mit_driverless_cv_traininginfra.models.stem_opt import pack_input
 
     rng = np.random.default_rng(1)
     folded = _rand_folded(rng)
@@ -163,22 +160,6 @@ def test_conv1_4x4_matches_packed_stem():
     assert np.abs(hq_new - hq_old).max() <= 1
 
 
-def test_kernel_matches_xla_reference():
-    """Pallas kernel (interpret mode) vs the XLA twin: identical integer
-    convs; only f32 fma-rounding at requant boundaries may flip an
-    occasional value by one int8 step."""
-    rng = np.random.default_rng(2)
-    folded = _rand_folded(rng)
-    ep = quantize_entry(folded, AMAX)
-    frames = jnp.asarray(rng.random((2, 64, 64, 3)), jnp.float32)
-    ref = np.asarray(entry_reference_int8(ep, frames, 0.1), np.int32)
-    got = np.asarray(entry_forward_int8(ep, frames, 0.1, interpret=True),
-                     np.int32)
-    assert got.shape == ref.shape == (2, 32, 32, 64)
-    assert np.abs(ref - got).max() <= 1
-    assert float((ref == got).mean()) >= 0.97
-
-
 def test_forward_features_integration(tmp_path):
     """forward_features_int8 with entry_q matches the plain int8 path on a
     real (mini) spec end-to-end, within int8-step noise at the head."""
@@ -196,24 +177,10 @@ def test_forward_features_integration(tmp_path):
     entry_q = quantize_entry(folded, amax)
 
     base = forward_features_int8(spec, yolo_q, frames)
-    # interpret-mode kernel: route through entry_forward_int8 manually
-    from mit_driverless_cv_traininginfra_tpu.models.darknet import _leaky
-    from mit_driverless_cv_traininginfra_tpu.models.quantize import (
-        _qconv_q8in,
-    )
-
-    resq = entry_forward_int8(entry_q, jnp.asarray(frames, jnp.bfloat16),
-                              spec.net.leaky_slope, interpret=True)
-    x = _leaky(_qconv_q8in(resq, yolo_q["5"], 2, 1, jnp.bfloat16),
-               spec.net.leaky_slope)
-    # finish the graph: block 6 is the preyolo conv
-    from mit_driverless_cv_traininginfra_tpu.models.rektnet import conv2d
-
-    q6 = yolo_q["6"]
-    head = conv2d(x, q6["w"], q6["b"], stride=1, padding=0)
+    head = forward_features_int8(spec, yolo_q, frames, entry_q=entry_q)
 
     a = np.asarray(base[0], np.float32)
-    b = np.asarray(head, np.float32)
+    b = np.asarray(head[0], np.float32)
     assert a.shape == b.shape
     # early-layer ±1 int8 steps propagate; bound the relative deviation
     scale = np.abs(a).mean() + 1e-3
@@ -225,7 +192,7 @@ def test_applicability_validates_block5(tmp_path):
     """The entry_q consumer hardcodes block 5 as an int8 3×3/s2 conv
     (quantize.forward_features_int8) — a spec whose block 5 is stride 1
     must be rejected by the gate, not silently run at stride 2."""
-    from mit_driverless_cv_traininginfra_tpu.config import load_network_spec
+    from mit_driverless_cv_traininginfra.config import load_network_spec
 
     bad = "stride=1".join(ENTRY_CFG.rsplit("stride=2", 1))
     cfg = tmp_path / "bad5.cfg"
@@ -237,17 +204,15 @@ def test_applicability_validates_block5(tmp_path):
 def test_quantize_entry_bf16_conv1_variant(tmp_path):
     """conv1_dtype='bf16' (layout-bound stage; int8 buys nothing on
     3-channel input) must emit the same int8 hq stream within ±1 step of
-    the int8 conv1. Kept CPU-only: mixing the bf16 conv with downstream
-    int8 convs hangs the remote TPU compile (PERF.md dead ends) — the
-    flag waits on a toolchain fix."""
+    the int8 conv1."""
 
-    from mit_driverless_cv_traininginfra_tpu.config import load_network_spec
-    from mit_driverless_cv_traininginfra_tpu.models.darknet import (
+    from mit_driverless_cv_traininginfra.config import load_network_spec
+    from mit_driverless_cv_traininginfra.models.darknet import (
         fold_bn,
         init_params,
     )
-    from mit_driverless_cv_traininginfra_tpu.models.quantize import calibrate
-    from mit_driverless_cv_traininginfra_tpu.ops.pallas_entry import (
+    from mit_driverless_cv_traininginfra.models.quantize import calibrate
+    from mit_driverless_cv_traininginfra.ops.entry import (
         conv1_4x4_q8,
         quantize_entry,
     )

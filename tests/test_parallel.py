@@ -4,23 +4,23 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from mit_driverless_cv_traininginfra_tpu.config import load_network_spec
-from mit_driverless_cv_traininginfra_tpu.models import rektnet
-from mit_driverless_cv_traininginfra_tpu.models.darknet import init_params
-from mit_driverless_cv_traininginfra_tpu.parallel.mesh import (
+from mit_driverless_cv_traininginfra.config import load_network_spec
+from mit_driverless_cv_traininginfra.models import rektnet
+from mit_driverless_cv_traininginfra.models.darknet import init_params
+from mit_driverless_cv_traininginfra.parallel.mesh import (
     batch_sharding,
     make_mesh,
     pad_batch_to_devices,
     replicate,
     shard_batch,
 )
-from mit_driverless_cv_traininginfra_tpu.train.optim import (
+from mit_driverless_cv_traininginfra.train.optim import (
     exponential_lr,
     make_optimizer,
     set_lr,
     step_lr,
 )
-from mit_driverless_cv_traininginfra_tpu.train.steps import (
+from mit_driverless_cv_traininginfra.train.steps import (
     init_train_state,
     rektnet_train_step,
     yolo_eval_step,

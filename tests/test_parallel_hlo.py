@@ -8,7 +8,7 @@ collective kinds plus BYTE BOUNDS on their operands.
 
 Reference counterpart: §2.5 (the reference's only parallelism is
 nn.DataParallel, CVC-YOLOv3/train.py:193-195 — it has no compile-level
-contract at all; this is the TPU-native claim, so it gets one).
+contract at all; this is this framework's claim, so it gets one).
 """
 
 import os
@@ -19,14 +19,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mit_driverless_cv_traininginfra_tpu.config.darknet_cfg import (
+from mit_driverless_cv_traininginfra.config.darknet_cfg import (
     load_network_spec,
 )
-from mit_driverless_cv_traininginfra_tpu.models.darknet import (
+from mit_driverless_cv_traininginfra.models.darknet import (
     detections,
     init_params,
 )
-from mit_driverless_cv_traininginfra_tpu.parallel.mesh import (
+from mit_driverless_cv_traininginfra.parallel.mesh import (
     MODEL_AXIS,
     make_mesh,
     make_mesh_2d,
@@ -35,8 +35,8 @@ from mit_driverless_cv_traininginfra_tpu.parallel.mesh import (
     shard_channels,
     shard_spatial,
 )
-from mit_driverless_cv_traininginfra_tpu.train.optim import make_optimizer
-from mit_driverless_cv_traininginfra_tpu.train.steps import (
+from mit_driverless_cv_traininginfra.train.optim import make_optimizer
+from mit_driverless_cv_traininginfra.train.steps import (
     init_train_state,
     yolo_train_step,
 )
@@ -137,11 +137,11 @@ def test_dp_pipeline_topk_collective_bytes():
     forces cross-device collectives, but they must move detection-slot
     metadata (scores/indices/crops), never the frame batch. Bound: 1/4 of
     the frame bytes."""
-    from mit_driverless_cv_traininginfra_tpu.infer.pipeline import (
+    from mit_driverless_cv_traininginfra.infer.pipeline import (
         two_stage_pipeline,
     )
-    from mit_driverless_cv_traininginfra_tpu.models import rektnet
-    from mit_driverless_cv_traininginfra_tpu.models.darknet import fold_bn
+    from mit_driverless_cv_traininginfra.models import rektnet
+    from mit_driverless_cv_traininginfra.models.darknet import fold_bn
 
     spec = load_network_spec(FIXTURE, vanilla_anchor=True)
     params, mstate = init_params(spec, jax.random.PRNGKey(5))
@@ -155,7 +155,7 @@ def test_dp_pipeline_topk_collective_bytes():
 
     txt = _compiled_text(
         two_stage_pipeline, spec, folded_r, {}, rfolded_r, {}, frames,
-        0.5, 0.25, 4, 16, None, 8, False, 0)
+        0.5, 0.25, 4, 16, None, 8, 0)
     colls = collectives(txt)
     assert colls, "batch-sharded pipeline lowered with NO collectives"
     # measured lowering (r5): exactly two collectives — the per-frame
@@ -181,8 +181,8 @@ def test_pp_cut_bytes_bounded():
     batch at the production geometry (416², B=8, capacity 64, 80² crops)
     — the regression mode is someone adding a frame-sized field to
     StageAOut."""
-    from mit_driverless_cv_traininginfra_tpu.infer.pp import detect_stage
-    from mit_driverless_cv_traininginfra_tpu.models.darknet import fold_bn
+    from mit_driverless_cv_traininginfra.infer.pp import detect_stage
+    from mit_driverless_cv_traininginfra.models.darknet import fold_bn
 
     spec = load_network_spec(FIXTURE, vanilla_anchor=True)
     params, mstate = init_params(spec, jax.random.PRNGKey(5))

@@ -3,7 +3,7 @@ mesh must be value-preserving vs the single-device program.
 
 The reference's only parallelism is single-node DataParallel
 (CVC-YOLOv3/train.py:193-195) — DP parity lives in test_parallel.py. These
-are the TPU-native scale-out axes beyond parity: the SAME jitted step/forward
+are the scale-out axes beyond parity: the SAME jitted step/forward
 functions run under different placements (parallel/mesh.py shard_channels /
 shard_spatial) and GSPMD inserts the collectives. Certifying value
 preservation here is what lets dryrun_multichip assert them cheaply.
@@ -15,20 +15,20 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from mit_driverless_cv_traininginfra_tpu.config import load_network_spec
-from mit_driverless_cv_traininginfra_tpu.models.darknet import (
+from mit_driverless_cv_traininginfra.config import load_network_spec
+from mit_driverless_cv_traininginfra.models.darknet import (
     detections,
     init_params,
 )
-from mit_driverless_cv_traininginfra_tpu.parallel.mesh import (
+from mit_driverless_cv_traininginfra.parallel.mesh import (
     MODEL_AXIS,
     make_mesh_2d,
     shard_batch,
     shard_channels,
     shard_spatial,
 )
-from mit_driverless_cv_traininginfra_tpu.train.optim import make_optimizer
-from mit_driverless_cv_traininginfra_tpu.train.steps import (
+from mit_driverless_cv_traininginfra.train.optim import make_optimizer
+from mit_driverless_cv_traininginfra.train.steps import (
     init_train_state,
     yolo_train_step,
 )
@@ -114,12 +114,12 @@ def test_pipeline_parallel_matches_fused():
     """TwoStagePP (detect stage on cpu:0, keypoint stage on cpu:1) must
     reproduce the fused single-program pipeline exactly: same mask/boxes,
     fp-tolerance keypoints — the device cut may not change values."""
-    from mit_driverless_cv_traininginfra_tpu.infer.pipeline import (
+    from mit_driverless_cv_traininginfra.infer.pipeline import (
         two_stage_pipeline,
     )
-    from mit_driverless_cv_traininginfra_tpu.infer.pp import TwoStagePP
-    from mit_driverless_cv_traininginfra_tpu.models import rektnet
-    from mit_driverless_cv_traininginfra_tpu.models.darknet import fold_bn
+    from mit_driverless_cv_traininginfra.infer.pp import TwoStagePP
+    from mit_driverless_cv_traininginfra.models import rektnet
+    from mit_driverless_cv_traininginfra.models.darknet import fold_bn
 
     spec = load_network_spec(FIXTURE, vanilla_anchor=True)
     params, mstate = init_params(spec, jax.random.PRNGKey(5))
@@ -159,12 +159,12 @@ def test_pipeline_parallel_capacity_exceeds_slots():
     detect_stage's top_k ('k must be no larger than size') — with the
     class's OWN defaults on a small batch. The selection width must clamp
     to the slot count and still match the fused dense path."""
-    from mit_driverless_cv_traininginfra_tpu.infer.pipeline import (
+    from mit_driverless_cv_traininginfra.infer.pipeline import (
         two_stage_pipeline,
     )
-    from mit_driverless_cv_traininginfra_tpu.infer.pp import TwoStagePP
-    from mit_driverless_cv_traininginfra_tpu.models import rektnet
-    from mit_driverless_cv_traininginfra_tpu.models.darknet import fold_bn
+    from mit_driverless_cv_traininginfra.infer.pp import TwoStagePP
+    from mit_driverless_cv_traininginfra.models import rektnet
+    from mit_driverless_cv_traininginfra.models.darknet import fold_bn
 
     spec = load_network_spec(FIXTURE, vanilla_anchor=True)
     params, mstate = init_params(spec, jax.random.PRNGKey(5))

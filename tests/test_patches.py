@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from mit_driverless_cv_traininginfra_tpu.ops.patches import (
+from mit_driverless_cv_traininginfra.ops.patches import (
     filter_and_offset_labels,
     get_patch_bounds,
     get_patch_spacings,

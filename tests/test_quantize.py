@@ -4,13 +4,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from mit_driverless_cv_traininginfra_tpu.config import load_network_spec
-from mit_driverless_cv_traininginfra_tpu.models.darknet import (
+from mit_driverless_cv_traininginfra.config import load_network_spec
+from mit_driverless_cv_traininginfra.models.darknet import (
     detections,
     fold_bn,
     init_params,
 )
-from mit_driverless_cv_traininginfra_tpu.models.quantize import (
+from mit_driverless_cv_traininginfra.models.quantize import (
     calibrate,
     detections_int8,
     quantize_params,
@@ -69,16 +69,16 @@ def test_calibration_covers_all_convs():
 
 
 def test_packed_stem_quantization_tracks_f32():
-    from mit_driverless_cv_traininginfra_tpu.models.quantize import (
+    from mit_driverless_cv_traininginfra.models.quantize import (
         _qconv,
         quantize_packed_stem,
     )
-    from mit_driverless_cv_traininginfra_tpu.models.stem_opt import (
+    from mit_driverless_cv_traininginfra.models.stem_opt import (
         apply_packed_stem,
         build_packed_stem,
         pack_input,
     )
-    from mit_driverless_cv_traininginfra_tpu.config.cfg_factory import yolov3_cfg
+    from mit_driverless_cv_traininginfra.config.cfg_factory import yolov3_cfg
     import tempfile
 
     with tempfile.NamedTemporaryFile("w", suffix=".cfg", delete=False) as f:
@@ -102,8 +102,8 @@ def test_packed_stem_quantization_tracks_f32():
 
 
 def test_rektnet_int8_tracks_f32():
-    from mit_driverless_cv_traininginfra_tpu.models import rektnet
-    from mit_driverless_cv_traininginfra_tpu.models.quantize import (
+    from mit_driverless_cv_traininginfra.models import rektnet
+    from mit_driverless_cv_traininginfra.models.quantize import (
         apply_rektnet_int8,
         calibrate_rektnet,
         quantize_rektnet_params,
@@ -128,7 +128,7 @@ def test_quantize_params_rejects_missing_amax():
     |x|>1 activation)."""
     import pytest
 
-    from mit_driverless_cv_traininginfra_tpu.config.darknet_cfg import (
+    from mit_driverless_cv_traininginfra.config.darknet_cfg import (
         ConvBlock,
     )
 

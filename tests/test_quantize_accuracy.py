@@ -23,18 +23,18 @@ import jax.numpy as jnp
 import optax
 import pytest
 
-from mit_driverless_cv_traininginfra_tpu.config import load_network_spec
-from mit_driverless_cv_traininginfra_tpu.data.synthetic import (
+from mit_driverless_cv_traininginfra.config import load_network_spec
+from mit_driverless_cv_traininginfra.data.synthetic import (
     rektnet_batch,
     yolo_batch,
 )
-from mit_driverless_cv_traininginfra_tpu.models import rektnet
-from mit_driverless_cv_traininginfra_tpu.models.darknet import (
+from mit_driverless_cv_traininginfra.models import rektnet
+from mit_driverless_cv_traininginfra.models.darknet import (
     detections,
     fold_bn,
     init_params,
 )
-from mit_driverless_cv_traininginfra_tpu.models.quantize import (
+from mit_driverless_cv_traininginfra.models.quantize import (
     apply_rektnet_int8,
     calibrate,
     calibrate_rektnet,
@@ -42,12 +42,12 @@ from mit_driverless_cv_traininginfra_tpu.models.quantize import (
     quantize_params,
     quantize_rektnet_params,
 )
-from mit_driverless_cv_traininginfra_tpu.ops.metrics import (
+from mit_driverless_cv_traininginfra.ops.metrics import (
     evaluate_image_batch,
     summarize,
 )
-from mit_driverless_cv_traininginfra_tpu.train.optim import make_optimizer
-from mit_driverless_cv_traininginfra_tpu.train.steps import (
+from mit_driverless_cv_traininginfra.train.optim import make_optimizer
+from mit_driverless_cv_traininginfra.train.steps import (
     init_train_state,
     rektnet_train_step,
     yolo_train_step,

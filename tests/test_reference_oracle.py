@@ -82,7 +82,7 @@ def _rand_targets(B, T, rng):
 @pytest.mark.parametrize("grid", [(13, 13), (10, 16)])
 def test_build_targets_matches_reference(grid):
     ref = _ref_modules()
-    from mit_driverless_cv_traininginfra_tpu.models.yolo_loss import (
+    from mit_driverless_cv_traininginfra.models.yolo_loss import (
         build_targets,
     )
 
@@ -114,7 +114,7 @@ def test_build_targets_matches_reference(grid):
 @pytest.mark.parametrize("top_k", [200, 10])
 def test_nms_matches_reference(top_k):
     ref = _ref_modules()
-    from mit_driverless_cv_traininginfra_tpu.ops.nms import nms
+    from mit_driverless_cv_traininginfra.ops.nms import nms
 
     rng = np.random.default_rng(1)
     # overlapping clusters so suppression actually fires
@@ -140,7 +140,7 @@ def test_nms_matches_reference(top_k):
 @pytest.mark.parity
 def test_average_precision_matches_reference():
     ref = _ref_modules()
-    from mit_driverless_cv_traininginfra_tpu.ops.metrics import (
+    from mit_driverless_cv_traininginfra.ops.metrics import (
         average_precision,
     )
 
@@ -167,7 +167,7 @@ def test_average_precision_matches_reference():
 )
 def test_affine_labels_matches_reference(angle, translate, scale, shear):
     ref = _ref_modules()
-    from mit_driverless_cv_traininginfra_tpu.data.augment import affine_labels
+    from mit_driverless_cv_traininginfra.data.augment import affine_labels
 
     rng = np.random.default_rng(3)
     h, w = 416, 416
@@ -192,7 +192,7 @@ def test_keypoint_net_forward_matches_reference():
     ref = _ref_modules()
     import jax.numpy as jnp
 
-    from mit_driverless_cv_traininginfra_tpu.models import rektnet
+    from mit_driverless_cv_traininginfra.models import rektnet
 
     torch.manual_seed(0)
     net = ref["kpn"].KeypointNet(num_kpt=7, image_size=(80, 80),
@@ -226,7 +226,7 @@ def test_keypoint_net_forward_matches_reference():
 @pytest.mark.parametrize("include_geo", [False, True])
 def test_cross_ratio_loss_matches_reference(loss_type, include_geo):
     ref = _ref_modules()
-    from mit_driverless_cv_traininginfra_tpu.models.cross_ratio_loss import (
+    from mit_driverless_cv_traininginfra.models.cross_ratio_loss import (
         cross_ratio_loss,
     )
 
@@ -263,7 +263,7 @@ def test_cross_ratio_loss_matches_reference(loss_type, include_geo):
 @pytest.mark.parity
 def test_box_conversions_match_reference():
     ref = _ref_modules()
-    from mit_driverless_cv_traininginfra_tpu.ops.boxes import (
+    from mit_driverless_cv_traininginfra.ops.boxes import (
         add_padding_on_each_side,
         scale_labels,
         xyhw2xyxy_corner,
@@ -306,7 +306,7 @@ def test_box_conversions_match_reference():
 @pytest.mark.parametrize("hw", [(600, 400), (400, 600), (800, 800)])
 def test_calculate_padding_matches_reference(hw):
     ref = _ref_modules()
-    from mit_driverless_cv_traininginfra_tpu.ops.boxes import calculate_padding
+    from mit_driverless_cv_traininginfra.ops.boxes import calculate_padding
 
     h, w = hw
     assert (calculate_padding(h, w, 416, 416)
@@ -316,7 +316,7 @@ def test_calculate_padding_matches_reference(hw):
 @pytest.mark.parity
 def test_patch_tiling_matches_reference():
     ref = _ref_modules()
-    from mit_driverless_cv_traininginfra_tpu.ops.patches import (
+    from mit_driverless_cv_traininginfra.ops.patches import (
         filter_and_offset_labels,
         get_patch_bounds,
         get_patch_spacings,
@@ -375,8 +375,8 @@ def test_darknet_full_forward_matches_reference(tmp_path):
     import jax.numpy as jnp
 
     ref = _ref_modules()
-    from mit_driverless_cv_traininginfra_tpu.config import load_network_spec
-    from mit_driverless_cv_traininginfra_tpu.models.darknet import (
+    from mit_driverless_cv_traininginfra.config import load_network_spec
+    from mit_driverless_cv_traininginfra.models.darknet import (
         detections,
         init_params,
         save_darknet_weights,
@@ -437,12 +437,12 @@ def test_rektnet_pt_optimizer_state_resumable_by_torch(tmp_path):
     import jax.numpy as jnp
     import optax
 
-    from mit_driverless_cv_traininginfra_tpu.models import rektnet
-    from mit_driverless_cv_traininginfra_tpu.train.checkpoints import (
+    from mit_driverless_cv_traininginfra.models import rektnet
+    from mit_driverless_cv_traininginfra.train.checkpoints import (
         _find_adam_state,
         save_rektnet_pt,
     )
-    from mit_driverless_cv_traininginfra_tpu.train.optim import make_optimizer
+    from mit_driverless_cv_traininginfra.train.optim import make_optimizer
 
     params, state = rektnet.init(jax.random.PRNGKey(0))
     tx = make_optimizer("Adam", lr=1e-3)

@@ -3,8 +3,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mit_driverless_cv_traininginfra_tpu.models import rektnet
-from mit_driverless_cv_traininginfra_tpu.models.rektnet import (
+from mit_driverless_cv_traininginfra.models import rektnet
+from mit_driverless_cv_traininginfra.models.rektnet import (
     apply,
     init,
     params_from_torch_state_dict,
@@ -126,7 +126,7 @@ def test_forward_matches_torch_oracle():
 
 
 def test_fold_bn_matches_apply():
-    from mit_driverless_cv_traininginfra_tpu.models.rektnet import apply_folded, fold_bn
+    from mit_driverless_cv_traininginfra.models.rektnet import apply_folded, fold_bn
 
     params, state = init(jax.random.PRNGKey(7))
     state = jax.tree_util.tree_map(

@@ -13,14 +13,14 @@ import jax
 import numpy as np
 from PIL import Image
 
-from mit_driverless_cv_traininginfra_tpu.cli import serve
-from mit_driverless_cv_traininginfra_tpu.config import load_network_spec
-from mit_driverless_cv_traininginfra_tpu.models import rektnet
-from mit_driverless_cv_traininginfra_tpu.models.darknet import (
+from mit_driverless_cv_traininginfra.cli import serve
+from mit_driverless_cv_traininginfra.config import load_network_spec
+from mit_driverless_cv_traininginfra.models import rektnet
+from mit_driverless_cv_traininginfra.models.darknet import (
     init_params,
     save_darknet_weights,
 )
-from mit_driverless_cv_traininginfra_tpu.train.checkpoints import (
+from mit_driverless_cv_traininginfra.train.checkpoints import (
     save_rektnet_pt,
 )
 
@@ -137,12 +137,8 @@ def test_serve_cli_synthetic_device_cache(tmp_path, capsys):
 
 
 def test_serve_cli_oversize_tail_and_kernel_flag(tmp_path, capsys):
-    """--syn_oversize_tail + --crop_kernel (VERDICT r4 #5 plumbing): the
-    tail scenes carry a broad cone-height mix and --crop_kernel off/on
-    forces the crop-op choice. The Pallas window kernel itself needs the
-    TPU (its DMA window can't lower on CPU), so this pins the CLI
-    plumbing; the switch firing end-to-end is the on-chip demo
-    (PERF.md 'Crop-kernel auto-degrade on chip')."""
+    """--syn_oversize_tail plumbing: the tail scenes carry a broad
+    cone-height mix and serve through the warmed lattice compile-free."""
     spec = load_network_spec(FIXTURE, vanilla_anchor=True)
     params, state = init_params(spec, jax.random.PRNGKey(0))
     w = str(tmp_path / "tiny.weights")
@@ -153,7 +149,6 @@ def test_serve_cli_oversize_tail_and_kernel_flag(tmp_path, capsys):
 
     rc = serve.main([
         "--source", "synthetic:6", "--syn_oversize_tail", "4",
-        "--crop_kernel", "off",
         "--model_cfg", FIXTURE,
         "--yolo_weights", w, "--rektnet_weights", pt,
         "--precision", "bf16", "--batch_size", "2",
@@ -165,8 +160,6 @@ def test_serve_cli_oversize_tail_and_kernel_flag(tmp_path, capsys):
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary["frames"] == 6
     assert summary["compiles"] == 0
-    assert summary["crop_kernel_active"] is False   # forced off
-    assert summary["crop_kernel_switches"] == 0
 
 
 def test_serve_cli_latency_mode(tmp_path, capsys):

@@ -6,17 +6,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mit_driverless_cv_traininginfra_tpu.config import load_network_spec
-from mit_driverless_cv_traininginfra_tpu.infer.capacity import (
+from mit_driverless_cv_traininginfra.config import load_network_spec
+from mit_driverless_cv_traininginfra.infer.capacity import (
     AdaptiveCapacity,
 )
-from mit_driverless_cv_traininginfra_tpu.infer.serving import TwoStageServer
-from mit_driverless_cv_traininginfra_tpu.models import rektnet
-from mit_driverless_cv_traininginfra_tpu.models.darknet import (
+from mit_driverless_cv_traininginfra.infer.serving import TwoStageServer
+from mit_driverless_cv_traininginfra.models import rektnet
+from mit_driverless_cv_traininginfra.models.darknet import (
     fold_bn,
     init_params,
 )
-from mit_driverless_cv_traininginfra_tpu.models.quantize import (
+from mit_driverless_cv_traininginfra.models.quantize import (
     calibrate,
     calibrate_rektnet,
     quantize_params,
@@ -110,7 +110,7 @@ def test_warmup_default_dtype_matches_served_traffic():
     the int8 and the bf16-folded configs (bench.py). A mismatched default
     makes warmup silently ineffective (jit keys on dtype), so assert the
     served call is a cache HIT via the jitted pipeline's cache size."""
-    from mit_driverless_cv_traininginfra_tpu.infer.pipeline import (
+    from mit_driverless_cv_traininginfra.infer.pipeline import (
         two_stage_pipeline,
         two_stage_pipeline_int8,
     )
@@ -209,7 +209,7 @@ def test_server_mesh_sharded_matches_single_device():
     """TwoStageServer(mesh=...) serves the batch sharded over the mesh;
     outputs must match the single-device server exactly (XLA SPMD handles
     the batch-global crop top-k via collectives)."""
-    from mit_driverless_cv_traininginfra_tpu.parallel.mesh import make_mesh
+    from mit_driverless_cv_traininginfra.parallel.mesh import make_mesh
 
     if jax.device_count() < 2:
         import pytest
@@ -377,59 +377,13 @@ def test_measure_latency_fenced_window():
     assert srv.defer_observation is True and srv.observe_every == 8
 
 
-def test_crop_kernel_auto_degrades_on_oversize():
-    """VERDICT r3 #8: when the sampled oversize-box rate breaks the
-    windowed crop kernel's contract, the server must route subsequent
-    batches to the XLA indexed crop on its own (both variants precompiled
-    by warmup) and count the switch in stats()."""
-    srv, frames = _server(policy=AdaptiveCapacity(floor=8, quantum=8,
-                                                  warmup_capacity=8),
-                          observe_every=1)
-    # arm the windowed-kernel watch manually: the 64x64 fixture frames
-    # cannot host the 256-row DMA window, but the degrade policy itself is
-    # geometry-independent (it reads only boxes + limits)
-    srv.crop_kernel = True
-    srv._box_limits = (240.0, 211.0)
-    srv.oversize_min_observed = 4
-    srv.oversize_degrade_threshold = 0.02
-
-    B, K = 2, 4
-    ok_boxes = np.zeros((B, K, 4), np.float32)
-    ok_boxes[..., 2] = 50.0                       # w=50, h=40: in contract
-    ok_boxes[..., 3] = 40.0
-    mask = np.zeros((B, K), bool)
-    mask[:, :2] = True
-    srv._observe_oversize(mask, ok_boxes)
-    assert not srv.crop_kernel_degraded
-    assert srv.stats()["crop_kernel_active"] is True
-
-    bad_boxes = ok_boxes.copy()
-    bad_boxes[..., 3] = 300.0                     # h=300 > 240: oversize
-    srv._observe_oversize(mask, bad_boxes)
-    assert srv.crop_kernel_degraded
-    assert srv.crop_kernel_switches == 1
-    st = srv.stats()
-    assert st["crop_kernel_active"] is False
-    assert st["crop_kernel_switches"] == 1
-    assert st["oversize_boxes"] == 4 and st["oversize_observed"] == 8
-
-    # degraded serving routes to the XLA indexed crop — the call must
-    # succeed even though the windowed kernel can't run on this geometry
-    out = srv(frames)
-    assert out.boxes.shape == (B, srv.max_det, 4)
-    # one-way switch: further oversize observations don't re-count
-    srv._observe_oversize(mask, bad_boxes)
-    assert srv.crop_kernel_switches == 1
-
-
 def test_deferred_observation_matches_fenced_counters():
     """defer_observation (default) stashes an observing batch's outputs and
     materializes them one observation-cycle later so the device->host read
-    overlaps queued device work (on chip: fence costs 6.5% fps at
-    observe_every=8, deferred 0.4% — tools/bench_serve_decomp.py). The
-    observer STREAM must be
-    identical to the immediate-fence mode: same load samples, same
-    pad-spurious, same oversize counts — only the read timing moves."""
+    overlaps queued device work (tools/bench_serve_decomp.py times it).
+    The observer STREAM must be identical to the immediate-fence mode:
+    same load samples, same pad-spurious counts — only the read timing
+    moves."""
     pol_kw = dict(floor=8, quantum=8, warmup_capacity=8)
     srv_d, frames = _server(policy=AdaptiveCapacity(**pol_kw),
                             observe_every=2, defer_observation=True)
@@ -470,6 +424,6 @@ def test_deferred_observation_matches_fenced_counters():
     assert st_f["latency_samples"] == 3
     assert st_d["latency_samples"] == 1
     assert st_d["pipeline_samples"] == 1
-    assert st_d["oversize_boxes"] == st_f["oversize_boxes"]
+    assert st_d["pad_spurious"] == st_f["pad_spurious"]
     # stats() twice is idempotent (no pending left to materialize)
     assert srv_d.stats()["observations"] == 3

@@ -4,15 +4,15 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from mit_driverless_cv_traininginfra_tpu.config import load_network_spec
-from mit_driverless_cv_traininginfra_tpu.config.cfg_factory import yolov3_cfg
-from mit_driverless_cv_traininginfra_tpu.models.darknet import (
+from mit_driverless_cv_traininginfra.config import load_network_spec
+from mit_driverless_cv_traininginfra.config.cfg_factory import yolov3_cfg
+from mit_driverless_cv_traininginfra.models.darknet import (
     detections,
     fold_bn,
     forward_features,
     init_params,
 )
-from mit_driverless_cv_traininginfra_tpu.models.stem_opt import (
+from mit_driverless_cv_traininginfra.models.stem_opt import (
     apply_packed_stem,
     build_packed_stem,
     pack_input,
@@ -51,7 +51,7 @@ def test_packed_stem_exact_vs_plain(tmp_path):
     import dataclasses
 
     sub = dataclasses.replace(spec, blocks=spec.blocks[:2])
-    from mit_driverless_cv_traininginfra_tpu.models.rektnet import conv2d
+    from mit_driverless_cv_traininginfra.models.rektnet import conv2d
 
     h = conv2d(x, folded["0"]["w"], folded["0"]["b"], stride=1, padding=1)
     h = jnp.where(h >= 0, h, h * spec.net.leaky_slope)
@@ -79,7 +79,7 @@ def test_full_detections_with_packed_stem(tmp_path):
 
 
 def test_slice_preyolo_preserves_box_conf_outputs(tmp_path):
-    from mit_driverless_cv_traininginfra_tpu.models.stem_opt import slice_preyolo
+    from mit_driverless_cv_traininginfra.models.stem_opt import slice_preyolo
 
     spec = _small_yolo_spec(tmp_path)
     params, state = init_params(spec, jax.random.PRNGKey(5))
@@ -107,7 +107,7 @@ def test_packed_training_stem_matches_plain(tmp_path):
     where conditioning is mild."""
     import os
 
-    from mit_driverless_cv_traininginfra_tpu.models.darknet import (
+    from mit_driverless_cv_traininginfra.models.darknet import (
         _leaky,
         _packed_stem_train,
         batch_norm,
@@ -134,7 +134,7 @@ def test_packed_training_stem_matches_plain(tmp_path):
                                np.asarray(packed_stem_out),
                                rtol=1e-5, atol=1e-5)
     for plain_stats, key in ((st0, "0"), (st1, "1")):
-        from mit_driverless_cv_traininginfra_tpu.models.rektnet import (
+        from mit_driverless_cv_traininginfra.models.rektnet import (
             update_running,
         )
 
@@ -193,9 +193,9 @@ def test_packed_training_step_matches_plain(tmp_path):
     components near zero (where the BN-stats reassociation noise
     dominates) legitimately flip, bounded by 2*lr; trajectory-level
     equivalence is the train-to-convergence bench's job."""
-    from mit_driverless_cv_traininginfra_tpu.data.synthetic import yolo_batch
-    from mit_driverless_cv_traininginfra_tpu.train.optim import make_optimizer
-    from mit_driverless_cv_traininginfra_tpu.train.steps import (
+    from mit_driverless_cv_traininginfra.data.synthetic import yolo_batch
+    from mit_driverless_cv_traininginfra.train.optim import make_optimizer
+    from mit_driverless_cv_traininginfra.train.steps import (
         init_train_state,
         yolo_train_step,
     )
@@ -232,8 +232,8 @@ def test_packed_stem_device_aug_step(tmp_path):
     flags compose in train/steps.py:174); pin that path: same aug key →
     same loss/BN state as the plain device-aug step, at the same
     tolerances as the host-aug twin above."""
-    from mit_driverless_cv_traininginfra_tpu.train.optim import make_optimizer
-    from mit_driverless_cv_traininginfra_tpu.train.steps import (
+    from mit_driverless_cv_traininginfra.train.optim import make_optimizer
+    from mit_driverless_cv_traininginfra.train.steps import (
         init_train_state,
         yolo_train_step_device_aug,
     )

@@ -9,7 +9,7 @@ import jax
 import pytest
 from PIL import Image
 
-from mit_driverless_cv_traininginfra_tpu.data.yolo_csv import YoloCsvRow, write_yolo_csv
+from mit_driverless_cv_traininginfra.data.yolo_csv import YoloCsvRow, write_yolo_csv
 
 
 @pytest.fixture
@@ -87,7 +87,7 @@ mask=0,1,2
 
 
 def test_yolo_driver_end_to_end(yolo_train_env):
-    from mit_driverless_cv_traininginfra_tpu.train import yolo_driver
+    from mit_driverless_cv_traininginfra.train import yolo_driver
 
     cfg_path, img_dir, tmp_path = yolo_train_env
     val_loss = yolo_driver.main(
@@ -129,8 +129,8 @@ def rektnet_train_env(tmp_path, monkeypatch):
 
 
 def test_rektnet_driver_end_to_end(rektnet_train_env):
-    from mit_driverless_cv_traininginfra_tpu.models import rektnet
-    from mit_driverless_cv_traininginfra_tpu.train import rektnet_driver
+    from mit_driverless_cv_traininginfra.models import rektnet
+    from mit_driverless_cv_traininginfra.train import rektnet_driver
 
     csv_path, img_dir, tmp_path = rektnet_train_env
     best = rektnet_driver.main(
@@ -151,8 +151,8 @@ def test_rektnet_driver_end_to_end(rektnet_train_env):
 
 def test_rektnet_pt_roundtrip(tmp_path):
     """save_rektnet_pt → load_torch_checkpoint must be the identity."""
-    from mit_driverless_cv_traininginfra_tpu.models import rektnet
-    from mit_driverless_cv_traininginfra_tpu.train.checkpoints import save_rektnet_pt
+    from mit_driverless_cv_traininginfra.models import rektnet
+    from mit_driverless_cv_traininginfra.train.checkpoints import save_rektnet_pt
 
     params, state = rektnet.init(jax.random.PRNGKey(3))
     p = str(tmp_path / "m.pt")
@@ -166,23 +166,73 @@ def test_rektnet_pt_roundtrip(tmp_path):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-def test_orbax_roundtrip(tmp_path):
-    from mit_driverless_cv_traininginfra_tpu.train.checkpoints import (
-        restore_orbax,
-        save_orbax,
+def _saved_epoch(out):
+    from mit_driverless_cv_traininginfra.train.checkpoints import STATE_FILE
+
+    with np.load(os.path.join(out, STATE_FILE)) as data:
+        return int(data["meta_epoch"])
+
+
+def test_state_roundtrip(tmp_path):
+    """save_state → restore_state is the identity on a TrainState, keeps
+    the metadata, and leaves no temp file behind."""
+    import optax
+
+    from mit_driverless_cv_traininginfra.models import rektnet
+    from mit_driverless_cv_traininginfra.train.checkpoints import (
+        restore_state,
+        save_state,
+    )
+    from mit_driverless_cv_traininginfra.train.steps import init_train_state
+
+    params, state = rektnet.init(jax.random.PRNGKey(0))
+    ts = init_train_state(params, state, optax.adam(1e-3))
+    path = str(tmp_path / "state.npz")
+    save_state(path, ts, epoch=3)
+    assert os.listdir(tmp_path) == ["state.npz"]
+    like = init_train_state(*rektnet.init(jax.random.PRNGKey(1)),
+                            optax.adam(1e-3))
+    out, meta = restore_state(path, like)
+    assert meta == {"epoch": 3}
+    assert type(out) is type(ts)
+    for a, b in zip(jax.tree_util.tree_leaves(ts),
+                    jax.tree_util.tree_leaves(out)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_state_restore_rejects_other_shapes(tmp_path):
+    from mit_driverless_cv_traininginfra.train.checkpoints import (
+        restore_state,
+        save_state,
     )
 
-    tree = {"a": np.arange(5.0), "b": {"c": np.ones((2, 3))}}
-    path = str(tmp_path / "ckpt")
-    save_orbax(path, tree)
-    out = restore_orbax(path)
-    np.testing.assert_array_equal(out["a"], tree["a"])
-    np.testing.assert_array_equal(out["b"]["c"], tree["b"]["c"])
+    path = str(tmp_path / "state.npz")
+    save_state(path, {"w": np.zeros((3, 4), np.float32)}, epoch=1)
+    with pytest.raises(ValueError, match="leaf 0"):
+        restore_state(path, {"w": np.zeros((4, 3), np.float32)})
+    with pytest.raises(ValueError, match="leaf 0"):
+        restore_state(path, {"w": np.zeros((3, 4), np.int32)})
+    with pytest.raises(ValueError, match="leaves"):
+        restore_state(path, {"w": np.zeros((3, 4), np.float32),
+                             "b": np.zeros((4,), np.float32)})
+
+
+def test_require_torch_fails_early(monkeypatch):
+    import importlib.util
+
+    from mit_driverless_cv_traininginfra.train import checkpoints
+
+    real = importlib.util.find_spec
+    monkeypatch.setattr(importlib.util, "find_spec",
+                        lambda name, *a: None if name == "torch"
+                        else real(name, *a))
+    with pytest.raises(RuntimeError, match="needs torch"):
+        checkpoints.require_torch("save_checkpoints")
 
 
 def test_hyper_study_tpe(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    from mit_driverless_cv_traininginfra_tpu.hyper.search import TPESampler, create_study
+    from mit_driverless_cv_traininginfra.hyper.search import TPESampler, create_study
 
     calls = []
 
@@ -208,8 +258,8 @@ def test_hyper_study_tpe(tmp_path, monkeypatch):
 
 
 def test_yolo_driver_resume(yolo_train_env):
-    """orbax resume: second run continues from the saved epoch."""
-    from mit_driverless_cv_traininginfra_tpu.train import yolo_driver
+    """Full-state resume: second run continues from the saved epoch."""
+    from mit_driverless_cv_traininginfra.train import yolo_driver
 
     cfg_path, img_dir, tmp_path = yolo_train_env
     out = str(tmp_path / "out_resume")
@@ -218,16 +268,16 @@ def test_yolo_driver_resume(yolo_train_env):
               lr=1e-4, gamma=0.95, vanilla_anchor=True, ts=False,
               num_workers=2, val_tolerance=99, min_epochs=3)
     yolo_driver.main(num_epochs=1, **kw)
-    assert os.path.exists(os.path.join(out, "orbax_latest.meta"))
+    assert _saved_epoch(out) == 1
     yolo_driver.main(num_epochs=2, resume=True, **kw)
     # epoch 1 already done → resumed run only writes epoch 2 weights
     assert os.path.exists(os.path.join(out, "2.weights"))
-    assert open(os.path.join(out, "orbax_latest.meta")).read() == "2"
+    assert _saved_epoch(out) == 2
 
 
 def test_yolo_driver_device_aug(yolo_train_env):
     """On-device augmentation path: full epoch trains with finite loss."""
-    from mit_driverless_cv_traininginfra_tpu.train import yolo_driver
+    from mit_driverless_cv_traininginfra.train import yolo_driver
 
     cfg_path, img_dir, tmp_path = yolo_train_env
     val_loss = yolo_driver.main(
@@ -240,7 +290,7 @@ def test_yolo_driver_device_aug(yolo_train_env):
 
 
 def test_rektnet_driver_device_targets(rektnet_train_env):
-    from mit_driverless_cv_traininginfra_tpu.train import rektnet_driver
+    from mit_driverless_cv_traininginfra.train import rektnet_driver
 
     csv_path, img_dir, tmp_path = rektnet_train_env
     best = rektnet_driver.main(
@@ -253,7 +303,7 @@ def test_rektnet_driver_device_targets(rektnet_train_env):
 
 
 def test_rektnet_driver_resume(rektnet_train_env):
-    from mit_driverless_cv_traininginfra_tpu.train import rektnet_driver
+    from mit_driverless_cv_traininginfra.train import rektnet_driver
 
     csv_path, img_dir, tmp_path = rektnet_train_env
     out = str(tmp_path / "out_resume")
@@ -262,9 +312,9 @@ def test_rektnet_driver_resume(rektnet_train_env):
               study_name="rstudy", checkpoint_interval=2,
               save_checkpoints=True)
     rektnet_driver.main(num_epochs=2, **kw)
-    assert os.path.exists(os.path.join(out, "orbax_latest.meta"))
+    assert _saved_epoch(out) == 2
     rektnet_driver.main(num_epochs=4, resume=True, **kw)
-    assert open(os.path.join(out, "orbax_latest.meta")).read() == "4"
+    assert _saved_epoch(out) == 4
 
 
 def test_study_marks_failed_trial_before_propagating(tmp_path):
@@ -274,7 +324,7 @@ def test_study_marks_failed_trial_before_propagating(tmp_path):
     other workers to see (optuna contract)."""
     import pytest
 
-    from mit_driverless_cv_traininginfra_tpu.hyper.search import create_study
+    from mit_driverless_cv_traininginfra.hyper.search import create_study
 
     study = create_study("sfail", storage_dir=str(tmp_path / "studies"))
 

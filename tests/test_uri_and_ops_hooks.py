@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from mit_driverless_cv_traininginfra_tpu.data.uri import resolve_uri
+from mit_driverless_cv_traininginfra.data.uri import resolve_uri
 
 
 def test_local_paths_pass_through(tmp_path):
@@ -43,11 +43,11 @@ def test_remote_uri_missing_in_mirror_raises(tmp_path, monkeypatch):
 def test_dataset_reads_csv_through_mirror(tmp_path, monkeypatch):
     """ImageLabelDataset accepts a gs:// train_uri when mirrored — the
     reference cfg's CLI contract (yolo_baseline.cfg:8-13) without egress."""
-    from mit_driverless_cv_traininginfra_tpu.data.yolo_csv import (
+    from mit_driverless_cv_traininginfra.data.yolo_csv import (
         YoloCsvRow,
         write_yolo_csv,
     )
-    from mit_driverless_cv_traininginfra_tpu.data.yolo_dataset import (
+    from mit_driverless_cv_traininginfra.data.yolo_dataset import (
         ImageLabelDataset,
     )
 
@@ -71,7 +71,7 @@ def test_dataset_reads_csv_through_mirror(tmp_path, monkeypatch):
 def test_vis_upload_data_pass(tmp_path):
     """--vis_upload_data renders the dataset then returns without training
     (train_eval.py:249-252; shutdown gated behind post_run_shutdown)."""
-    from mit_driverless_cv_traininginfra_tpu.train import rektnet_driver
+    from mit_driverless_cv_traininginfra.train import rektnet_driver
 
     rng = np.random.default_rng(2)
     cones = tmp_path / "cones"

@@ -7,7 +7,7 @@ import pytest
 
 cv2 = pytest.importorskip("cv2")
 
-from mit_driverless_cv_traininginfra_tpu.utils.vis import (  # noqa: E402
+from mit_driverless_cv_traininginfra.utils.vis import (  # noqa: E402
     heatmap_strip,
     vis_hm_and_save,
     vis_hm_strip_and_save,

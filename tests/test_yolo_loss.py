@@ -2,7 +2,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mit_driverless_cv_traininginfra_tpu.models.yolo_loss import (
+from mit_driverless_cv_traininginfra.models.yolo_loss import (
     _bce,
     build_targets,
     yolo_head_loss,
@@ -139,7 +139,7 @@ def test_bce_logits_matches_bce_and_torch():
     """The logits BCE (the loss's stable form) must match both the
     post-sigmoid _bce and torch on moderate logits."""
     import jax
-    from mit_driverless_cv_traininginfra_tpu.models.yolo_loss import (
+    from mit_driverless_cv_traininginfra.models.yolo_loss import (
         _bce_logits,
     )
 

@@ -6,9 +6,8 @@ a 4x4 stride-2 conv 3->128 on the original frames: packed output channel
 frame rows 2I+a+dy-1, i.e. the 4x4 patch starting at (2I-1, 2J-1).
 w4[a+dy, b+dx, c, (2a+b)*32+co] = w1[dy, dx, c, co].
 
-This kills both the space-to-depth transpose (3.19 ms/batch measured) and
-the narrow-12-channel conv layout, and halves the MACs (K=48 vs K=108 with
-structural zeros).
+This kills both the space-to-depth transpose and the narrow-12-channel
+conv layout, and halves the MACs (K=48 vs K=108 with structural zeros).
 """
 
 import os
@@ -18,7 +17,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-from mit_driverless_cv_traininginfra_tpu.utils.jaxcache import (
+from mit_driverless_cv_traininginfra.utils.jaxcache import (
     enable_compile_cache,
 )
 
@@ -28,14 +27,11 @@ import jax.numpy as jnp
 import numpy as np
 
 
-# canonical chained timing (utils/profiling.time_ms, default depth 32):
-# this tool's old local copy chained only 10 calls, the exact depth-10
-# methodology PERF.md documents as inflated 2-3 ms for sub-5 ms stages
-from mit_driverless_cv_traininginfra_tpu.utils.profiling import time_ms
+from mit_driverless_cv_traininginfra.utils.profiling import time_ms
 
 
 def _time_ms(fn, iters=32):
-    return time_ms(fn, lambda o: o.astype(jnp.float32), iters)
+    return time_ms(fn, iters)
 
 
 def conv1_4x4_weights(folded_params):
@@ -57,18 +53,18 @@ def conv1_4x4_weights(folded_params):
 
 def main():
     import bench as bench_mod
-    from mit_driverless_cv_traininginfra_tpu.config.flagship import (
+    from mit_driverless_cv_traininginfra.config.flagship import (
         flagship_spec,
     )
-    from mit_driverless_cv_traininginfra_tpu.data.synthetic import yolo_batch
-    from mit_driverless_cv_traininginfra_tpu.models.darknet import fold_bn
-    from mit_driverless_cv_traininginfra_tpu.models.quantize import (
+    from mit_driverless_cv_traininginfra.data.synthetic import yolo_batch
+    from mit_driverless_cv_traininginfra.models.darknet import fold_bn
+    from mit_driverless_cv_traininginfra.models.quantize import (
         calibrate, quantize_packed_stem, quantize_params,
     )
-    from mit_driverless_cv_traininginfra_tpu.models.stem_opt import (
+    from mit_driverless_cv_traininginfra.models.stem_opt import (
         build_packed_stem, pack_input, slice_preyolo,
     )
-    from mit_driverless_cv_traininginfra_tpu.models.quantize import _qconv
+    from mit_driverless_cv_traininginfra.models.quantize import _qconv
 
     batch = 128
     spec = flagship_spec(416)

@@ -1,18 +1,17 @@
 """Decompose TwoStageServer overhead vs the raw fused-pipeline loop.
 
-The r4 bench's serve section measured 852 then 134 fps for the SAME
-config that the raw loop runs at ~2230 fps — the serve number was (a)
-noisy (20 calls, 3 latency samples) and (b) paying per-observation
-queue-drain fences. This tool measures, steady-state and on-chip:
+Separates what the serving wrapper costs from the pipeline itself,
+steady-state and on the GPU:
 
-  raw        — the bare jitted pipeline loop (one end fence)
-  serve      — TwoStageServer defaults (observe_every=8)
-  serve-noov — observation on, oversize box pull off
-  serve-rare — observe_every=64
-  serve-off  — observation effectively off after the first call
+  raw         — the bare jitted pipeline loop
+  serve-defer — TwoStageServer defaults (deferred observation, every 8)
+  serve-fence — immediate observation every 8 calls (waits for the batch)
+  serve-rare  — observe_every=64
+  serve-off   — observation effectively off after the first call
 
-Each mode warms 5 untimed calls first, then times N calls under one end
-fence, and prints per-8-call window wall times so outliers are visible.
+Each mode warms 5 untimed calls first, then times N calls up to
+jax.block_until_ready of the last, and prints per-8-call window wall
+times so outliers are visible.
 
 Usage: python tools/bench_serve_decomp.py [--iters 64] [--batch 128]
 """
@@ -28,34 +27,31 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from mit_driverless_cv_traininginfra_tpu.utils.profiling import (  # noqa: E402
-    fence,
-)
 
 
 def build_setup(batch):
-    from mit_driverless_cv_traininginfra_tpu.config.flagship import (
+    from mit_driverless_cv_traininginfra.config.flagship import (
         flagship_spec,
     )
-    from mit_driverless_cv_traininginfra_tpu.data.synthetic import (
+    from mit_driverless_cv_traininginfra.data.synthetic import (
         rektnet_batch,
         yolo_batch,
     )
-    from mit_driverless_cv_traininginfra_tpu.models import rektnet
-    from mit_driverless_cv_traininginfra_tpu.models.darknet import fold_bn
-    from mit_driverless_cv_traininginfra_tpu.models.quantize import (
+    from mit_driverless_cv_traininginfra.models import rektnet
+    from mit_driverless_cv_traininginfra.models.darknet import fold_bn
+    from mit_driverless_cv_traininginfra.models.quantize import (
         calibrate,
         calibrate_rektnet,
         quantize_packed_stem,
         quantize_params,
         quantize_rektnet_params,
     )
-    from mit_driverless_cv_traininginfra_tpu.models.stem_opt import (
+    from mit_driverless_cv_traininginfra.models.stem_opt import (
         build_packed_stem,
         slice_preyolo,
         stem_is_packable,
     )
-    from mit_driverless_cv_traininginfra_tpu.ops.pallas_entry import (
+    from mit_driverless_cv_traininginfra.ops.entry import (
         entry_block_applicable,
         quantize_entry,
     )
@@ -83,11 +79,11 @@ def build_setup(batch):
     return spec, yolo_q, stem_q, rekt_q, entry_q, frames
 
 
-def timed_loop(fn, frames, out_fence, iters, warm=5):
+def timed_loop(fn, frames, iters, warm=5):
     out = None
     for _ in range(warm):
         out = fn(frames)
-    out_fence(out)
+    jax.block_until_ready(out)
     windows = []
     t0 = time.perf_counter()
     tw = t0
@@ -97,7 +93,7 @@ def timed_loop(fn, frames, out_fence, iters, warm=5):
             now = time.perf_counter()
             windows.append((now - tw) * 1000)
             tw = now
-    out_fence(out)
+    jax.block_until_ready(out)
     dt = time.perf_counter() - t0
     return dt, windows
 
@@ -108,13 +104,13 @@ def main():
     iters = int(sys.argv[sys.argv.index("--iters") + 1]) \
         if "--iters" in sys.argv else 64
 
-    from mit_driverless_cv_traininginfra_tpu.infer.capacity import (
+    from mit_driverless_cv_traininginfra.infer.capacity import (
         AdaptiveCapacity,
     )
-    from mit_driverless_cv_traininginfra_tpu.infer.pipeline import (
+    from mit_driverless_cv_traininginfra.infer.pipeline import (
         two_stage_pipeline_int8,
     )
-    from mit_driverless_cv_traininginfra_tpu.infer.serving import (
+    from mit_driverless_cv_traininginfra.infer.serving import (
         TwoStageServer,
     )
 
@@ -126,38 +122,32 @@ def main():
         return two_stage_pipeline_int8(
             spec, yolo_q, stem_q, rekt_q, f, conf_thresh=conf,
             nms_thresh=0.25, max_det=16, crop_capacity=cap,
-            entry_q=entry_q, crop_kernel=True)
+            entry_q=entry_q)
 
-    out_fence = lambda o: fence(o.keypoints, o.scores)
-
-    def make_server(observe_every, oversize=True, defer=False):
+    def make_server(observe_every, defer=False):
         s = TwoStageServer(
             spec, yolo_q=yolo_q, stem_q=stem_q, rekt_q=rekt_q,
             entry_q=entry_q, conf_thresh=conf, nms_thresh=0.25, max_det=16,
             policy=AdaptiveCapacity(floor=min(256, cap), margin=1.1,
                                     quantum=32, warmup_capacity=cap),
-            observe_every=observe_every, crop_kernel=True,
-            defer_observation=defer)
-        if not oversize:
-            s._box_limits = None
+            observe_every=observe_every, defer_observation=defer)
         t = time.perf_counter()
         s.warmup([batch], capacities=[cap])
         print(f"  warmup {time.perf_counter() - t:.1f}s", file=sys.stderr)
         return s
 
     results = {}
-    dt, win = timed_loop(raw, frames, out_fence, iters)
+    dt, win = timed_loop(raw, frames, iters)
     results["raw"] = (batch * iters / dt, win)
 
     for name, kw in [
         ("serve-defer", dict(observe_every=8, defer=True)),
         ("serve-fence", dict(observe_every=8)),
-        ("serve-noov", dict(observe_every=8, oversize=False)),
         ("serve-rare", dict(observe_every=64)),
         ("serve-off", dict(observe_every=10 ** 9)),
     ]:
         srv = make_server(**kw)
-        dt, win = timed_loop(srv, frames, out_fence, iters)
+        dt, win = timed_loop(srv, frames, iters)
         results[name] = (batch * iters / dt, win)
         st = srv.stats()
         print(f"  {name}: compiles={st['compiles']} "

@@ -34,8 +34,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax.numpy as jnp  # noqa: E402
 
-from mit_driverless_cv_traininginfra_tpu.models import rektnet  # noqa: E402
-from mit_driverless_cv_traininginfra_tpu.models.quantize import (  # noqa: E402
+from mit_driverless_cv_traininginfra.models import rektnet  # noqa: E402
+from mit_driverless_cv_traininginfra.models.quantize import (  # noqa: E402
     apply_rektnet_int8,
     calibrate_rektnet,
     quantize_rektnet_params,
@@ -73,7 +73,7 @@ def main(argv=None) -> int:
     params, state = rektnet.load_torch_checkpoint(args.pt)
     folded = rektnet.fold_bn(params, state)
 
-    from mit_driverless_cv_traininginfra_tpu.data.synthetic import rektnet_batch
+    from mit_driverless_cv_traininginfra.data.synthetic import rektnet_batch
 
     t0 = time.perf_counter()
     # calibration on train-distribution crops (same recipe as train_to_map)
@@ -93,7 +93,7 @@ def main(argv=None) -> int:
     }
 
     if args.csv:
-        from mit_driverless_cv_traininginfra_tpu.data.rektnet_data import (
+        from mit_driverless_cv_traininginfra.data.rektnet_data import (
             ConeDataset,
             RektNetLoader,
             load_train_csv_dataset,

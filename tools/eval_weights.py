@@ -23,7 +23,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from mit_driverless_cv_traininginfra_tpu.utils.jaxcache import (
+from mit_driverless_cv_traininginfra.utils.jaxcache import (
     enable_compile_cache,
 )
 
@@ -44,22 +44,22 @@ def main(argv=None) -> int:
     ap.add_argument("--json", type=str, default="")
     args = ap.parse_args(argv)
 
-    from mit_driverless_cv_traininginfra_tpu.config.flagship import (
+    from mit_driverless_cv_traininginfra.config.flagship import (
         flagship_spec,
     )
-    from mit_driverless_cv_traininginfra_tpu.data.synthetic import yolo_batch
-    from mit_driverless_cv_traininginfra_tpu.models.darknet import (
+    from mit_driverless_cv_traininginfra.data.synthetic import yolo_batch
+    from mit_driverless_cv_traininginfra.models.darknet import (
         detections,
         fold_bn,
         init_params,
         load_darknet_weights,
     )
-    from mit_driverless_cv_traininginfra_tpu.models.quantize import (
+    from mit_driverless_cv_traininginfra.models.quantize import (
         calibrate,
         detections_int8,
         quantize_params,
     )
-    from mit_driverless_cv_traininginfra_tpu.ops.metrics import (
+    from mit_driverless_cv_traininginfra.ops.metrics import (
         evaluate_image_batch,
     )
 

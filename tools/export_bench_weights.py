@@ -2,7 +2,8 @@
 deployment artifacts `cli.serve` consumes: a Darknet `.weights` file, a
 RektNet `.pt` checkpoint, and the matching 416x416 cfg.
 
-The bench trains/caches raw pytrees (~/.cache/mdcv_bench/ckpt_v1.npz);
+The bench trains/caches raw pytrees (bench.CKPT, outputs/bench/ in the
+checkout);
 the serving CLI — like the reference's deployment flow (train.py:214-217
 saves .weights, train_eval.py:103-110 saves .pt) — loads the legacy
 formats. This tool bridges them so the on-chip serving-runtime study runs
@@ -22,31 +23,32 @@ import numpy as np
 
 
 def main() -> int:
+    import bench
+
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default=os.path.expanduser("~/.cache/mdcv_bench"))
+    ap.add_argument("--out", default=os.path.dirname(bench.CKPT))
     ap.add_argument("--ckpt",
-                    default=os.path.expanduser("~/.cache/mdcv_bench/ckpt_v1.npz"))
+                    default=bench.CKPT)
     opt = ap.parse_args()
 
-    import bench
-    from mit_driverless_cv_traininginfra_tpu.config.cfg_factory import (
+    from mit_driverless_cv_traininginfra.config.cfg_factory import (
         yolov3_cfg,
     )
-    from mit_driverless_cv_traininginfra_tpu.config.flagship import (
+    from mit_driverless_cv_traininginfra.config.flagship import (
         flagship_spec,
     )
-    from mit_driverless_cv_traininginfra_tpu.models import rektnet
-    from mit_driverless_cv_traininginfra_tpu.models.darknet import (
+    from mit_driverless_cv_traininginfra.models import rektnet
+    from mit_driverless_cv_traininginfra.models.darknet import (
         init_params,
         save_darknet_weights,
     )
-    from mit_driverless_cv_traininginfra_tpu.train.checkpoints import (
+    from mit_driverless_cv_traininginfra.train.checkpoints import (
         save_rektnet_pt,
     )
 
     if not os.path.exists(opt.ckpt):
         print(f"ERROR: no bench checkpoint at {opt.ckpt} — run bench.py on "
-              "the TPU first (it trains and caches the weights)",
+              "the GPU first (it trains and caches the weights)",
               file=sys.stderr)
         return 1
 

@@ -3,8 +3,8 @@
 Writes the three artifacts ``cli.serve`` consumes — a Darknet ``.weights``
 file, a RektNet ``.pt`` checkpoint, and the matching resolution-parametric
 cfg — from the bench's cached trained checkpoint
-(``~/.cache/mdcv_bench/ckpt_v1.npz``; trains it first if absent). This
-lets the production serving CLI be driven end-to-end on chip with the SAME
+(``outputs/bench/ckpt_v1.npz`` in the checkout; trains it first if
+absent). This lets the production serving CLI be driven end-to-end with the SAME
 weights ``bench.py`` measures (VERDICT r3 #1), exercising the full
 deployment load path (``load_darknet_weights`` → ``fold_bn`` →
 ``slice_preyolo`` → PTQ) rather than handing the server pre-built trees.
@@ -24,16 +24,16 @@ def main():
     outdir = sys.argv[1] if len(sys.argv) > 1 else "/tmp/serve_artifacts"
     os.makedirs(outdir, exist_ok=True)
 
-    from mit_driverless_cv_traininginfra_tpu.config.cfg_factory import (
+    from mit_driverless_cv_traininginfra.config.cfg_factory import (
         yolov3_cfg,
     )
-    from mit_driverless_cv_traininginfra_tpu.config.flagship import (
+    from mit_driverless_cv_traininginfra.config.flagship import (
         flagship_spec,
     )
-    from mit_driverless_cv_traininginfra_tpu.models.darknet import (
+    from mit_driverless_cv_traininginfra.models.darknet import (
         save_darknet_weights,
     )
-    from mit_driverless_cv_traininginfra_tpu.train.checkpoints import (
+    from mit_driverless_cv_traininginfra.train.checkpoints import (
         save_rektnet_pt,
     )
 
@@ -53,7 +53,7 @@ def main():
     print(f"weights: {w_path} ({os.path.getsize(w_path)} bytes)")
     print(f"rektnet: {pt_path} ({os.path.getsize(pt_path)} bytes)")
     print(f"weights_sha: {sha}")
-    print("serve: python -m mit_driverless_cv_traininginfra_tpu.cli.serve "
+    print("serve: python -m mit_driverless_cv_traininginfra.cli.serve "
           f"--source synthetic:2048 --model_cfg {cfg_path} "
           f"--yolo_weights {w_path} --rektnet_weights {pt_path} "
           "--vanilla_anchor --precision int8 --batch_size 128 "

@@ -22,7 +22,7 @@ Usage:
 Also emits <out>/yolo_synth_416.cfg — the flagship YOLOv3 cfg (416², 80
 classes, vanilla anchors) with train_uri/validate_uri pointing at the CSVs,
 ready for:
-    python -m mit_driverless_cv_traininginfra_tpu.cli.yolo_train \
+    python -m mit_driverless_cv_traininginfra.cli.yolo_train \
         --model_cfg <out>/yolo_synth_416.cfg --dataset_path <out>/images \
         --vanilla_anchor --batch_size 128 ...
 """
@@ -40,9 +40,9 @@ from PIL import Image
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from mit_driverless_cv_traininginfra_tpu.config.cfg_factory import yolov3_cfg
-from mit_driverless_cv_traininginfra_tpu.data.synthetic import cone_scene
-from mit_driverless_cv_traininginfra_tpu.data.yolo_csv import (
+from mit_driverless_cv_traininginfra.config.cfg_factory import yolov3_cfg
+from mit_driverless_cv_traininginfra.data.synthetic import cone_scene
+from mit_driverless_cv_traininginfra.data.yolo_csv import (
     YoloCsvRow,
     write_yolo_csv,
 )
@@ -85,10 +85,10 @@ def _write_rektnet_split(out_dir: str, train: int, val: int, rng,
     held-out rows are written FIRST; run cli.rektnet_train with
     ``--validation_ratio val/(train+val)``.
     """
-    from mit_driverless_cv_traininginfra_tpu.data.rektnet_data import (
+    from mit_driverless_cv_traininginfra.data.rektnet_data import (
         DEFAULT_KEYPOINT_KEYS,
     )
-    from mit_driverless_cv_traininginfra_tpu.data.synthetic import cone_crop
+    from mit_driverless_cv_traininginfra.data.synthetic import cone_crop
 
     img_dir = os.path.join(out_dir, "images")
     os.makedirs(img_dir, exist_ok=True)

@@ -31,8 +31,8 @@ import jax.numpy as jnp
 import numpy as np
 
 import bench
-from mit_driverless_cv_traininginfra_tpu.config.flagship import flagship_spec
-from mit_driverless_cv_traininginfra_tpu.models.darknet import (
+from mit_driverless_cv_traininginfra.config.flagship import flagship_spec
+from mit_driverless_cv_traininginfra.models.darknet import (
     detections,
     fold_bn,
 )
@@ -54,7 +54,7 @@ def main():
 
     rng = np.random.default_rng(7)
     frames_np, _ = __import__(
-        "mit_driverless_cv_traininginfra_tpu.data.synthetic",
+        "mit_driverless_cv_traininginfra.data.synthetic",
         fromlist=["yolo_batch"]).yolo_batch(rng, 32, size=spec.net.height)
     frames = jnp.asarray(frames_np)
 
@@ -72,7 +72,7 @@ def main():
         runs.append((sha, md, (params, state, rp, rs)))
 
     # cross-process data point: the live bench cache, if present
-    real = os.path.expanduser("~/.cache/mdcv_bench/ckpt_v1.npz")
+    real = bench.CKPT
     if os.path.exists(real):
         cp, cs, crp, crs = bench._load_trees(real, list(runs[0][2]))
         print(f"cached bench ckpt: sha {bench._tree_sha([cp, cs, crp, crs])}"
