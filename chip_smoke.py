@@ -6,19 +6,23 @@ full width of the flagship model (YOLOv3 at 416², config/flagship.py →
 fixed-shape NMS → ROI crop → RektNet 80² keypoints), with random weights
 made from fixed seeds:
 
+- reference: the plain f32 pipeline at ``highest`` matmul precision on the
+  GPU against the same program on the CPU backend; the bf16 and int8
+  serving configurations against it stage by stage, each stage on the
+  reference's input; one YOLO train step's loss and gradients on the GPU
+  against the CPU;
 - serve_bf16 / serve_int8: ``TwoStageServer`` over the BN-folded models,
   warmed up, then a few B=128 batches; no compile after warmup;
 - train_yolo / train_rektnet: ``cli.yolo_train`` and ``cli.rektnet_train``
-  on a small rendered disk dataset, one checkpoint, one resume;
-- reference: the plain f32 pipeline at ``highest`` matmul precision on the
-  GPU against the same program on the CPU backend; the bf16 and int8
-  serving configurations against it stage by stage; one YOLO train step's
-  loss and gradients on the GPU against the CPU.
+  on a small rendered disk dataset, one checkpoint, one resume.
 
-Every reading line starts with the card's name and power limit. The last
-line of standard output is one JSON object, ``{"ok": true, "device":
-{...}}``. Any failed phase raises, so the script exits non-zero and prints
-no result; it also refuses to run where JAX finds no GPU.
+Each comparison's tolerance is stated in ``TOLERANCES``; where a check has
+a control, a deliberately wrong program goes through the same check and
+the run fails unless the check rejects it. Every reading line starts with
+the card's name and power limit. The last line of standard output is one
+JSON object, ``{"ok": true, "device": {...}}``. Any failed phase raises,
+so the script exits non-zero and prints no result; it also refuses to run
+where JAX finds no GPU.
 
     python chip_smoke.py          # one GPU
     python chip_smoke.py --four   # only the four-GPU phase: DP train step
@@ -41,29 +45,30 @@ import time
 from typing import Dict, List, Optional, Sequence
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SINGLE_PHASES = ("serve_bf16", "serve_int8", "train_yolo", "train_rektnet",
-                 "reference")
+SINGLE_PHASES = ("reference", "serve_bf16", "serve_int8", "train_yolo",
+                 "train_rektnet")
 FOUR_PHASES = ("four",)
 
 # Tolerances of the comparisons, each with the precision it applies to.
+# Where a control is named, chip_smoke feeds a deliberately wrong program
+# through the same check every run and fails unless the check rejects it.
 TOLERANCES = {
-    # f32 at "highest" on the GPU vs the CPU backend: same program, only
-    # rounding differs (cuDNN's algorithms vs direct summation), so boxes
-    # in frame pixels agree below a quarter pixel (0.0069 and 0.0264 px
-    # were measured on two H100s)
-    "f32_gpu_vs_cpu_px": 0.25,
+    # f32 at "highest" on the GPU vs the CPU backend: the same program,
+    # rounding only; boxes in frame pixels (0.0069 and 0.0264 px were
+    # measured on H100s)
+    "f32_gpu_vs_cpu_px": 0.05,
     # keypoints through the whole pipeline, GPU vs CPU: median over points
     # (a box shift of ~1e-2 px can move a peak of an untrained, peaked
     # heatmap; the maximum is reported)
-    "f32_gpu_vs_cpu_kpt_median_px": 0.25,
-    # detector head outputs vs the f32 reference: relative RMS error of
-    # the raw pre-decode maps, as a multiple of the reference's own
-    # response to its input perturbed at that precision's step (2^-8 for
-    # bf16, 2^-7 for int8). An untrained BN network amplifies perturbations
-    # through depth (a 1e-4 input change moves the heads by ~7e-3), so a
-    # fixed bound would be either meaningless or fragile
-    "head_rel_rms_bf16": 3.0,
-    "head_rel_rms_int8": 3.0,
+    "f32_gpu_vs_cpu_kpt_median_px": 0.05,
+    # detector, stage by stage with every stage's input pinned to the f32
+    # reference's (the entry/stem path, then each conv): the largest
+    # relative RMS error of a stage's output. Pinning keeps the untrained
+    # network's amplification out (end to end, a 2^-8 input change moves
+    # its heads by ~20%). Control: every conv's weights (bf16) or dequant
+    # scale (int8) off by CONTROL_SCALE
+    "detector_stage_rel_rms_bf16": 0.02,
+    "detector_stage_rel_rms_int8": 0.1,
     # keypoint net on the same crops: relative RMS error of the heatmap
     # logits, and the median keypoint error in pixels of the 80² crop (the
     # untrained heatmaps are peaked, so a small logit error can move a
@@ -72,26 +77,30 @@ TOLERANCES = {
     "kpt_logit_rel_rms_int8": 0.2,
     "kpt_px_bf16": 1.0,
     "kpt_px_int8": 3.0,
-    # YOLO train step at "highest", GPU vs CPU: relative error of the loss
-    # and of the gradient norms (global, and per leaf over the leaves that
-    # carry ≥1e-3 of the global norm). cuDNN's autotuned f32 convolution
-    # algorithms round differently from the CPU's direct summation, and
-    # the untrained train-mode network amplifies that through depth: the
-    # loss differed by 3.5e-3 on an H100, which a 1e-3 input perturbation
-    # reproduces on the CPU (loss 2.5e-3, global norm 1.5e-2, leaf 0.12;
-    # 1e-2 gives 1.0e-2, 2.4e-2, 0.34). These bounds catch a wrong program
-    # (zero or doubled gradients read 1.0), not rounding
-    "train_loss_rel": 2e-2,
-    "train_grad_norm_rel_global": 0.1,
-    "train_grad_norm_rel_leaf": 0.5,
+    # YOLO train step at "highest", GPU vs CPU, on targets in distinct
+    # cells (colliding targets alone move the loss by 3.6e-3: see
+    # distinct_cell_targets): relative error of the loss and of the
+    # gradient norms (global, and per leaf over the leaves that carry
+    # ≥1e-3 of the global norm). f32 rounding alone sets a floor: on the
+    # CPU, frames perturbed by 1e-6 / 1e-5 relative read loss 1.1e-6 /
+    # 2.9e-5, global 5.8e-4 / 4.2e-4, leaf 9.0e-3 / 1.5e-2 (the train-mode
+    # backward of the untrained network cancels heavily); by 1e-3, the
+    # scale of TF32 rounding, 3.2e-4, 1.2e-2 and 0.19. Control: the same
+    # step on the GPU at default precision (TF32 convolutions) must fail
+    # at least one of the three
+    "train_loss_rel": 1e-4,
+    "train_grad_norm_rel_global": 5e-3,
+    "train_grad_norm_rel_leaf": 6e-2,
     # four GPUs vs one at "highest" (same global batch): the same readings
-    # (each device may pick its own algorithms for its batch shard), and
+    # (four virtual CPU devices vs one read 1.4e-6, 1.1e-3, 8.8e-3), and
     # the served boxes (max) and keypoints (median) in pixels
-    "dp_loss_rel": 2e-2,
-    "dp_grad_norm_rel_global": 0.1,
-    "dp_grad_norm_rel_leaf": 0.5,
-    "mesh_serve_px": 0.25,
+    "dp_loss_rel": 1e-4,
+    "dp_grad_norm_rel_global": 5e-3,
+    "dp_grad_norm_rel_leaf": 6e-2,
+    "mesh_serve_px": 0.05,
 }
+# the controls' error: weights or dequant scales a quarter off
+CONTROL_SCALE = 1.25
 
 
 class SmokeFailure(RuntimeError):
@@ -117,6 +126,8 @@ class Config:
     ref_batch: int = 4           # GPU vs CPU pipeline comparison
     grad_batch: int = 2          # GPU vs CPU train-step comparison,
     grad_size: int = 256         # at full width, smaller frames
+    dp_batch: int = 8            # four-GPU train step, global batch
+    four_batch: int = 32         # four-GPU serving batch
     seed: int = 0
 
 
@@ -180,6 +191,21 @@ class Reporter:
         if not ok:
             raise SmokeFailure(f"{phase}: {name} = {value} exceeds {limit} "
                                f"({precision})")
+
+    def control(self, phase: str, name: str, checks, precision: str) -> None:
+        """A deliberately wrong program's readings, ``[(check, value,
+        limit), ...]``: at least one must fail its check, or the check
+        could not catch that fault and the run fails."""
+        failed = 0
+        for check, value, limit in checks:
+            try:
+                self.check(phase, f"control:{name}:{check}", value, limit,
+                           precision)
+            except SmokeFailure:
+                failed += 1
+        if not failed:
+            raise SmokeFailure(f"{phase}: control {name} passed every check "
+                               f"({precision}): the checks cannot catch it")
 
 
 def memory_reading(compiled) -> str:
@@ -651,6 +677,26 @@ def phase_train_rektnet(cfg: Config, workdir: str, report, dev) -> None:
            checkpoint=os.path.relpath(state_path, ROOT))
 
 
+def distinct_cell_targets(batch: int, per_image: int = 5):
+    """(batch, per_image, 5) targets ``[class, cx, cy, w, h]`` whose
+    centres lie in distinct cells of an 8×8 grid, hence in distinct cells
+    of every head's grid (all are finer). ``build_targets`` writes targets
+    that share an (anchor, cell) slot with a scatter whose order XLA
+    leaves open, so two backends may keep different ones; on these
+    targets the loss is one function on every backend."""
+    import numpy as np
+
+    if per_image > 8:
+        raise ValueError("at most 8 targets per image fit distinct columns")
+    t = np.zeros((batch, per_image, 5), np.float32)
+    for b in range(batch):
+        for k in range(per_image):
+            w = 0.04 + 0.03 * ((b + k) % 5)
+            t[b, k] = (0, (k + 0.45) / 8, ((3 * b + k) % 8 + 0.55) / 8,
+                       w, 1.4 * w)
+    return t
+
+
 def _grad_norms(spec, params, state, imgs, tgts):
     """Loss and per-leaf gradient norms of the YOLO train loss (f32)."""
     import jax
@@ -670,24 +716,147 @@ def _grad_norms(spec, params, state, imgs, tgts):
                   for g in jax.tree_util.tree_leaves(grads)]
 
 
-def _compare_grads(report, phase, prefix, ref, got, precision) -> None:
-    """Loss and gradient norms of ``got`` against ``ref`` under the
-    ``{prefix}loss_rel`` / ``{prefix}grad_norm_rel_*`` tolerances."""
+def grad_errors(prefix: str, ref, got):
+    """``[(check, value, limit), ...]``: the relative errors of ``got``'s
+    loss and gradient norms against ``ref``'s (each ``(loss, [per-leaf
+    norm])``) under the ``{prefix}loss_rel`` / ``{prefix}grad_norm_rel_*``
+    tolerances."""
     import numpy as np
 
     loss_r, norms_r = float(ref[0]), np.asarray([float(n) for n in ref[1]])
     loss_g, norms_g = float(got[0]), np.asarray([float(n) for n in got[1]])
-    report.check(phase, prefix + "loss_rel",
-                 abs(loss_g - loss_r) / abs(loss_r),
-                 TOLERANCES[prefix + "loss_rel"], precision)
     g_r, g_g = np.sqrt((norms_r ** 2).sum()), np.sqrt((norms_g ** 2).sum())
-    report.check(phase, prefix + "grad_norm_rel_global",
-                 abs(g_g - g_r) / g_r,
-                 TOLERANCES[prefix + "grad_norm_rel_global"], precision)
     big = norms_r > 1e-3 * g_r
     per_leaf = np.abs(norms_g[big] - norms_r[big]) / norms_r[big]
-    report.check(phase, prefix + "grad_norm_rel_leaf", float(per_leaf.max()),
-                 TOLERANCES[prefix + "grad_norm_rel_leaf"], precision)
+    values = (abs(loss_g - loss_r) / abs(loss_r), abs(g_g - g_r) / g_r,
+              float(per_leaf.max()))
+    names = ("loss_rel", "grad_norm_rel_global", "grad_norm_rel_leaf")
+    return [(prefix + n, float(v), TOLERANCES[prefix + n])
+            for n, v in zip(names, values)]
+
+
+def _conv_io(spec, folded, x):
+    """Every conv block's input and output (before its activation) in the
+    plain BN-folded forward: ``{block index: (input, output)}``."""
+    import jax
+    import jax.numpy as jnp
+
+    from mit_driverless_cv_traininginfra.config.darknet_cfg import (
+        ConvBlock,
+        MaxPoolBlock,
+        RouteBlock,
+        ShortcutBlock,
+        UpsampleBlock,
+    )
+    from mit_driverless_cv_traininginfra.models.darknet import (
+        _leaky,
+        _maxpool,
+        _upsample,
+    )
+    from mit_driverless_cv_traininginfra.models.rektnet import conv2d
+
+    io, outs = {}, []
+    for i, b in enumerate(spec.blocks):
+        if isinstance(b, ConvBlock):
+            p = folded[str(i)]
+            y = conv2d(x, p["w"], p["b"], stride=b.stride,
+                       padding=(b.size - 1) // 2)
+            io[i] = (x, y)
+            x = (_leaky(y, spec.net.leaky_slope) if b.activation == "leaky"
+                 else jax.nn.relu(y) if b.activation == "ReLU" else y)
+        elif isinstance(b, MaxPoolBlock):
+            x = _maxpool(x, b.size, b.stride)
+        elif isinstance(b, UpsampleBlock):
+            x = _upsample(x, b.stride)
+        elif isinstance(b, RouteBlock):
+            x = jnp.concatenate([outs[li] for li in b.layers], axis=-1)
+        elif isinstance(b, ShortcutBlock):
+            x = outs[-1] + outs[b.from_layer]
+        outs.append(x)
+    return io
+
+
+def detector_stages(spec, precision: str, params, io, frames):
+    """The serving configuration's detector, stage by stage on the f32
+    reference's inputs: ``{stage: (reference output, output)}``.
+
+    The first stage is what replaces the first blocks on the serving
+    path (bf16: the packed stem, blocks 0-1; int8: the entry path,
+    blocks 0-4, dequantized), then every later conv on its reference
+    input. ``params``: bf16 ``{"folded", "packed"}`` or int8 ``{"yolo_q",
+    "entry_q"}``."""
+    import jax.numpy as jnp
+
+    from mit_driverless_cv_traininginfra.models.quantize import _qconv
+    from mit_driverless_cv_traininginfra.models.rektnet import conv2d
+    from mit_driverless_cv_traininginfra.models.stem_opt import (
+        apply_packed_stem,
+    )
+    from mit_driverless_cv_traininginfra.ops.entry import entry_forward_int8
+
+    bf = jnp.bfloat16
+    slope = spec.net.leaky_slope
+    x = frames.astype(bf)
+    stages, start = {}, 0
+    if precision == "bf16" and params["packed"] is not None:
+        start = 2
+        stages["stem"] = (io[start][0], apply_packed_stem(
+            params["packed"], x, slope))
+    elif precision == "int8" and params["entry_q"] is not None:
+        start = 5
+        ep = params["entry_q"]
+        stages["entry"] = (io[start][0], entry_forward_int8(
+            ep, x, slope).astype(jnp.float32) / ep["sx"][0, 2])
+    for i in sorted(k for k in io if k >= start):
+        b = spec.blocks[i]
+        inp = io[i][0].astype(bf)
+        pad = (b.size - 1) // 2
+        if precision == "bf16":
+            p = params["folded"][str(i)]
+            out = conv2d(inp, p["w"], p["b"], stride=b.stride, padding=pad)
+        elif "wq" in params["yolo_q"][str(i)]:
+            out = _qconv(inp, params["yolo_q"][str(i)], b.stride, pad, bf)
+        else:                                   # pre-yolo convs stay bf16
+            q = params["yolo_q"][str(i)]
+            out = conv2d(inp, q["w"], q["b"], stride=b.stride, padding=pad)
+        stages[f"conv{i}"] = (io[i][1], out)
+    return stages
+
+
+def control_params(precision: str, params):
+    """``params`` with every conv's weights and bias (bf16) or dequant
+    scale and bias (int8) multiplied by CONTROL_SCALE."""
+    import jax
+
+    s = CONTROL_SCALE
+    if precision == "bf16":
+        return {"folded": jax.tree_util.tree_map(lambda v: v * s,
+                                                 params["folded"]),
+                "packed": params["packed"]}
+    yolo_q = {k: ({**q, "scale": q["scale"] * s, "b": q["b"] * s}
+                  if "wq" in q else {"w": q["w"] * s, "b": q["b"] * s})
+              for k, q in params["yolo_q"].items()}
+    return {"yolo_q": yolo_q, "entry_q": params["entry_q"]}
+
+
+def detector_stage_errors(spec, precision: str):
+    """Jitted ``(params, io, frames) → (worst stage, {stage: relative RMS
+    error})`` of :func:`detector_stages`, reduced on the device."""
+    import jax
+    import jax.numpy as jnp
+
+    def errors(params, io, frames):
+        return {k: jnp.sqrt(jnp.mean((o.astype(jnp.float32) - r) ** 2)
+                            / jnp.maximum(jnp.mean(r ** 2), 1e-30))
+                for k, (r, o) in detector_stages(spec, precision, params, io,
+                                                 frames).items()}
+
+    fn = jax.jit(errors)
+
+    def run(params, io, frames):
+        errs = {k: float(v) for k, v in fn(params, io, frames).items()}
+        return max(errs, key=errs.get), errs
+    return run
 
 
 def phase_reference(cfg: Config, models: dict, report, dev) -> None:
@@ -700,13 +869,9 @@ def phase_reference(cfg: Config, models: dict, report, dev) -> None:
         two_stage_pipeline,
     )
     from mit_driverless_cv_traininginfra.models import rektnet
-    from mit_driverless_cv_traininginfra.models.darknet import (
-        forward_features,
-        init_params,
-    )
+    from mit_driverless_cv_traininginfra.models.darknet import init_params
     from mit_driverless_cv_traininginfra.models.quantize import (
         apply_rektnet_int8,
-        forward_features_int8,
     )
     from mit_driverless_cv_traininginfra.ops.image import (
         roi_crop_bilinear_indexed,
@@ -749,36 +914,31 @@ def phase_reference(cfg: Config, models: dict, report, dev) -> None:
                  float(np.median(kpx)),
                  TOLERANCES["f32_gpu_vs_cpu_kpt_median_px"], "f32 highest")
 
-    # 2. bf16 and int8 vs the f32 reference, stage by stage
+    # 2. bf16 and int8 vs the f32 reference, stage by stage, each stage
+    # on the reference's input to it
     q = quantize_models(models)
     x32 = jnp.asarray(frames)
-    xbf = x32.astype(jnp.bfloat16)
-    ref_fwd = jax.jit(lambda x: forward_features(spec, models["folded"],
-                                                 {}, x)[0])
-    u = jnp.asarray(np.random.default_rng(5).uniform(-1, 1, frames.shape),
-                    jnp.float32)
     with jax.default_matmul_precision("highest"):
-        heads_ref = ref_fwd(x32)
-        # the reference's response to its input rounded at each
-        # precision's step: the scale the network amplifies rounding to
-        floor = {prec: max(rel_rms(r, h) for r, h in zip(
-                     heads_ref, ref_fwd(x32 * (1 + step * u))))
-                 for prec, step in (("bf16", 2.0 ** -8), ("int8", 2.0 ** -7))}
-    heads = {
-        "bf16": jax.jit(lambda x: forward_features(
-            spec, models["folded_bf"], {}, x,
-            packed_stem=models["packed_bf"])[0])(xbf),
-        "int8": jax.jit(lambda x: forward_features_int8(
-            spec, q["yolo_q"], x, packed_stem_q=q["stem_q"],
-            entry_q=q["entry_q"]))(xbf),
-    }
-    for prec, hs in heads.items():
-        err = max(rel_rms(r, h) for r, h in zip(heads_ref, hs))
-        report(phase, detector_heads_rel_rms=err, precision=prec,
-               f32_perturbation_floor=floor[prec])
-        report.check(phase, "detector_heads_rel_rms_over_floor",
-                     err / floor[prec], TOLERANCES[f"head_rel_rms_{prec}"],
+        io = jax.jit(lambda x: _conv_io(spec, models["folded"], x))(x32)
+    stage_params = {
+        "bf16": {"folded": models["folded_bf"], "packed": models["packed_bf"]},
+        "int8": {"yolo_q": q["yolo_q"], "entry_q": q["entry_q"]}}
+    for prec, params in stage_params.items():
+        errors = detector_stage_errors(spec, prec)
+        tol = TOLERANCES[f"detector_stage_rel_rms_{prec}"]
+        worst, errs = errors(params, io, x32)
+        # every conv stage of the control is wrong; each alone must fail
+        _, c_errs = errors(control_params(prec, params), io, x32)
+        c_min = min(v for k, v in c_errs.items() if k.startswith("conv"))
+        report(phase, precision=prec, detector_stages=len(errs),
+               worst_stage=worst,
+               median_stage_rel_rms=float(np.median(list(errs.values()))),
+               control_min_conv_stage_rel_rms=c_min)
+        report.check(phase, "detector_stage_rel_rms_max", errs[worst], tol,
                      prec)
+        report.control(phase, f"scale_x{CONTROL_SCALE}", [
+            ("detector_stage_rel_rms_min_conv", c_min, tol)], prec)
+    del io
 
     # the reference's own detections, cropped once in f32: every
     # precision's keypoint net sees the same crops
@@ -815,20 +975,29 @@ def phase_reference(cfg: Config, models: dict, report, dev) -> None:
     # 3. one YOLO train step at highest: GPU vs CPU
     full = flagship_or_cfg(dataclasses.replace(cfg, size=cfg.grad_size))
     params, state = init_params(full, jax.random.PRNGKey(cfg.seed + 2))
-    imgs, tgts = yolo_batch(np.random.default_rng(3), cfg.grad_batch,
-                            size=cfg.grad_size)
+    imgs, _ = yolo_batch(np.random.default_rng(3), cfg.grad_batch,
+                         size=cfg.grad_size)
+    args = (params, state, imgs, distinct_cell_targets(cfg.grad_batch))
     fn = jax.jit(lambda p, s, x, t: _grad_norms(full, p, s, x, t))
     with jax.default_matmul_precision("highest"):
         t0 = time.perf_counter()
-        ref = jax.block_until_ready(fn(params, state, imgs, tgts))
-        gpu_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        got = jax.block_until_ready(fn(on_cpu(params), on_cpu(state),
-                                       on_cpu(imgs), on_cpu(tgts)))
+        ref = jax.block_until_ready(fn(*on_cpu(args)))
         cpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = jax.block_until_ready(fn(*args))
+        gpu_s = time.perf_counter() - t0
+    # the control: the same step at default precision (TF32 on the GPU)
+    tf32 = jax.block_until_ready(fn(*args))
+    sound = grad_errors("train_", ref, got)
+    control = grad_errors("train_", ref, tf32)
     report(phase, train_step_gpu_s=gpu_s, train_step_cpu_s=cpu_s,
-           loss_gpu=float(ref[0]), loss_cpu=float(got[0]))
-    _compare_grads(report, phase, "train_", ref, got, "f32 highest")
+           loss_cpu=float(ref[0]), loss_gpu=float(got[0]),
+           **{c: v for c, v, _ in sound},
+           **{f"default_precision_{c}": v for c, v, _ in control})
+    for check, value, limit in sound:
+        report.check(phase, check, value, limit, "f32 highest")
+    report.control(phase, "gpu_default_precision", control,
+                   "f32 default (TF32)")
 
 
 def phase_four(cfg: Config, models: dict, report, dev) -> None:
@@ -859,10 +1028,11 @@ def phase_four(cfg: Config, models: dict, report, dev) -> None:
     phase = "four"
     mesh = make_mesh(4)
     one = jax.devices()[0]
-    full = flagship_or_cfg(cfg)
+    full = flagship_or_cfg(dataclasses.replace(cfg, size=cfg.grad_size))
     key = jax.random.PRNGKey(cfg.seed + 2)
-    gb = 2 * cfg.train_batch                 # global batch, 4 per card
-    imgs, tgts = yolo_batch(np.random.default_rng(4), gb, size=cfg.size)
+    gb = cfg.dp_batch                        # global batch
+    imgs, _ = yolo_batch(np.random.default_rng(4), gb, size=cfg.grad_size)
+    tgts = distinct_cell_targets(gb)
     # the production step as yolo_driver runs it on a mesh, with plain SGD
     # at lr 1 so each parameter's update is its gradient
     tx = make_optimizer("SGD", lr=1.0, momentum=0.0)
@@ -885,8 +1055,12 @@ def phase_four(cfg: Config, models: dict, report, dev) -> None:
                                      x4, t4)
         jax.block_until_ready(ts4)
         dp_first_s = time.perf_counter() - t0
-        _compare_grads(report, phase, "dp_", (l1, update_norms(ts1)),
-                       (l4, update_norms(ts4)), "f32 highest")
+        dp = grad_errors("dp_", (l1, update_norms(ts1)),
+                         (l4, update_norms(ts4)))
+        report(phase, dp_global_batch=gb, size=cfg.grad_size,
+               **{c: v for c, v, _ in dp})
+        for check, value, limit in dp:
+            report.check(phase, check, value, limit, "f32 highest")
         if not jax.tree_util.tree_leaves(ts4.params)[0] \
                 .sharding.is_fully_replicated:
             raise SmokeFailure(f"{phase}: DP params lost replication")
@@ -897,7 +1071,7 @@ def phase_four(cfg: Config, models: dict, report, dev) -> None:
             return loss
 
         dp_ms = time_ms(step, 3)
-        report(phase, dp_global_batch=gb, dp_compile_and_first_s=dp_first_s,
+        report(phase, dp_compile_and_first_s=dp_first_s,
                dp_steady_ms_per_step_f32=dp_ms, **device_memory(dev))
         del box, ts1, ts4
 
@@ -905,18 +1079,19 @@ def phase_four(cfg: Config, models: dict, report, dev) -> None:
         kw = dict(yolo_params=models["folded"], rekt_params=models["rfold"],
                   conf_thresh=models["conf_thresh"], nms_thresh=0.25,
                   max_det=cfg.max_det, observe_every=2)
-        frames = jnp.asarray(models["frames"][0], jnp.float32)
-        cap = cfg.crop_capacity
+        frames = jnp.asarray(models["frames"][0][:cfg.four_batch],
+                             jnp.float32)
+        cap = cfg.crop_capacity * cfg.four_batch // cfg.batch
         outs = {}
         for name, mesh_arg in (("one", None), ("four", make_mesh(4))):
             srv = TwoStageServer(
                 models["spec"], mesh=mesh_arg,
                 policy=AdaptiveCapacity(floor=cap, quantum=32,
                                         warmup_capacity=cap), **kw)
-            warm_s = srv.warmup([cfg.batch], capacities=[cap])
+            warm_s = srv.warmup([cfg.four_batch], capacities=[cap])
             ms = time_ms(lambda: srv(frames), 3)
             outs[name] = jax.device_get(srv(frames))
-            report(phase, server=name, compile_s=warm_s,
+            report(phase, server=name, batch=cfg.four_batch, compile_s=warm_s,
                    steady_ms_per_batch_f32=ms,
                    compiles_after_warmup=srv.stats()["compiles"])
     a, b = outs["one"], outs["four"]

@@ -10,28 +10,13 @@ string themselves; they call these functions:
 - :func:`mixed_precision` — resolves the drivers' ``mixed_precision="auto"``
   (bf16 compute with f32 master weights on the GPU, f32 on the CPU, where
   the test suite pins float32 numerics).
-- :func:`peak_rates` — published peak rates of the card, keyed by JAX's
-  ``device_kind``. An unknown device is an error, not a default.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Union
 
 import jax
-
-# NVIDIA H100 SXM data sheet, dense (no sparsity), at the 700 W limit.
-_H100_SXM = {
-    "bf16_flops": 989e12,
-    "fp8_flops": 1979e12,
-    "int8_ops": 1979e12,
-    "tf32_flops": 495e12,
-    "f32_flops": 67e12,
-    "hbm_bytes_per_s": 3.35e12,
-}
-PEAK_RATES: Dict[str, Dict[str, float]] = {
-    "NVIDIA H100 80GB HBM3": _H100_SXM,
-}
 
 
 def platform() -> str:
@@ -59,12 +44,3 @@ def mixed_precision(setting: Union[str, bool]) -> bool:
     raise ValueError(f"mixed_precision must be 'auto', True or False, "
                      f"got {setting!r}")
 
-
-def peak_rates(device_kind: str) -> Dict[str, float]:
-    """Published peak rates of ``device_kind``; raises KeyError when the
-    table does not know the device."""
-    try:
-        return PEAK_RATES[device_kind]
-    except KeyError:
-        raise KeyError(f"no published peak rates for device kind "
-                       f"{device_kind!r}; known: {sorted(PEAK_RATES)}") from None

@@ -32,19 +32,6 @@ def test_mixed_precision_rejects_other_values():
         backend.mixed_precision("bf16")
 
 
-def test_peak_rates_known_device():
-    peaks = backend.peak_rates("NVIDIA H100 80GB HBM3")
-    assert peaks["bf16_flops"] == 989e12
-    assert peaks["int8_ops"] == 1979e12
-    assert peaks["hbm_bytes_per_s"] == 3.35e12
-
-
-@pytest.mark.parametrize("kind", ["cpu", "NVIDIA A100-SXM4-80GB", ""])
-def test_peak_rates_unknown_device_raises(kind):
-    with pytest.raises(KeyError, match="no published peak rates"):
-        backend.peak_rates(kind)
-
-
 @pytest.fixture
 def restore_cache_config():
     names = ("jax_compilation_cache_dir",
